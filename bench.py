@@ -1,109 +1,114 @@
-"""Headline benchmark: batched half-precision 1D FFT throughput on one chip.
+"""Headline benchmark: batched half-precision 1D FFT throughput on one GPU.
 
-Prints ONE JSON line:
-  {"metric": ..., "value": ..., "unit": "GFLOP/s", "vs_baseline": ...}
+    python bench.py            # one JSON line for the headline cell
+    python bench.py --routes   # staged vs xla (cuFFT) at the route cells
 
 Headline config = BASELINE.md row 1 (batch=4096, N=16384, bf16 storage); the
-secondary N=4096 config (BASELINE config 1 family) is reported alongside in
-"secondary".  GFLOP/s uses the standard 5*N*log2(N) complex-FFT flop
-convention (what cuFFT reports).  vs_baseline = speedup over the plain-XLA
-staged path compiled from the same math (the "library without custom kernels"
-baseline; jnp.fft cannot run on this TPU backend — no complex support).
+secondary N=4096 config is reported alongside in "secondary".  GFLOP/s uses
+the standard 5*N*log2(N) complex-FFT flop convention (what cuFFT reports).
+vs_baseline = speedup of the default plan over cuFFT, reached through
+``jnp.fft`` in complex64 on the same card.  Times are means of
+block_until_ready-bracketed calls after warm-up (testing.timer.measure); the
+roofline share is against the card's published peaks (utils.device.PEAKS).
 
-Measurement is decision-grade (round-1 verdict: single chain_measure windows
-drift by tens of percent on the shared relay): each config interleaves the
-fused path and the staged baseline round-by-round via
-testing.timer.chain_compare (A_low, B_low, A_high, B_high per round, median
-of per-round slopes, reference methodology anchor: Bench.h:121-149's
-100-sample mean±σ), and the reported sigma is the across-round spread.
-Three consecutive runs land within the interleaved-median's sigma (~±10%).
+``--routes`` times both routes ``plan.route`` chooses between, staged and
+xla, in bf16 and float32 at N = 4096 and 16384 (batch 4096) and at N = 2^20
+(batch 64): the measurement behind the GPU route table in plan.py.
+
+The script refuses any platform other than ``gpu``.
 """
 import argparse
 import json
+import subprocess
 import sys
 
 import numpy as np
 
+ROUTE_CELLS = ((4096, 4096), (16384, 4096), (1 << 20, 64))
 
-def _measure_config(n, batch, precision, smoke):
-    import jax
+
+def time_plan(plan, batch, samples=20):
+    """(mean ns, sigma ns) of fft_split(plan) on a (batch, N) input."""
+    import jax.numpy as jnp
+
+    from tensorfft_tpu.fft import _fft_split_jit
+    from tensorfft_tpu.testing.timer import measure
+
+    rng = np.random.default_rng(0)
+    storage = plan.precision.storage_dtype
+    shape = (batch, plan.fft_length)
+    re = jnp.asarray(rng.standard_normal(shape), storage)
+    im = jnp.asarray(rng.standard_normal(shape), storage)
+    r = measure(lambda a, b: _fft_split_jit(a, b, plan, True), (re, im),
+                warmup=3, samples=samples)
+    return r.average_time_ns, r.std_deviation_ns
+
+
+def measure_config(n, batch, precision, samples=20):
+    """One cell: the default plan, cuFFT (xla) and the staged route."""
     import jax.numpy as jnp
 
     import tensorfft_tpu as tfft
-    from tensorfft_tpu.fft import _fft_split_jit
-    from tensorfft_tpu.testing.timer import chain_compare
-
-    rng = np.random.default_rng(0)
-    storage = tfft.Precision(precision).storage_dtype
-    re = jnp.asarray(rng.standard_normal((batch, n)), storage)
-    im = jnp.asarray(rng.standard_normal((batch, n)), storage)
-
-    # "auto" consults the committed autotuner cache (reference-workflow parity:
-    # its bench reads TunerResults.dat back through CreatePlan, Plan.h:197-255).
-    plan = tfft.create_plan(n, precision=precision, tuning="auto",
-                            batch_hint=batch)
-    plan_base = tfft.create_plan(n, precision=precision, strategy="staged")
-
-    from tensorfft_tpu.tuning.tuner import chain_step_for_plan
-
-    # Layout-stationary chain step (four-step would otherwise pay a spurious
-    # XLA relayout per chain iteration; divisor accounts for fwd+inv steps).
-    fused, divisor = chain_step_for_plan(plan)
-    staged = lambda a, b: _fft_split_jit(a, b, plan_base, True)
-
-    # Cross-window drift on the shared relay reaches tens of percent even
-    # for interleaved pairs (identical configs measured 215 vs 366 us in
-    # separate windows), so take the median over several windows; sigma is
-    # the across-window spread — the honest reproducibility bar.
-    kwargs = dict(iters_low=1, iters_high=3, reps=2) if smoke else {}
-    windows = 1 if smoke else 3
-    ts, tbs = [], []
-    for _ in range(windows):
-        r, rb = chain_compare(fused, staged, (re, im), **kwargs)
-        if not np.isnan(r.average_time_ns):
-            ts.append(r.average_time_ns / divisor)
-        if not np.isnan(rb.average_time_ns):
-            tbs.append(rb.average_time_ns)
-    import dataclasses
-
-    ts = ts or [float("nan")]
-    tbs = tbs or [float("nan")]
-    r = dataclasses.replace(
-        r,
-        average_time_ns=float(np.median(ts)),
-        std_deviation_ns=float(np.std(ts)),
-    )
-    rb = dataclasses.replace(rb, average_time_ns=float(np.median(tbs)))
-
-    flops = 5.0 * n * float(np.log2(n)) * batch
-    gflops = flops / max(r.average_time_ns, 1e-9)
-
     from tensorfft_tpu.utils import fft_roofline_seconds
 
-    itemsize = jnp.dtype(storage).itemsize
-    if plan.resolve_strategy().value == "four_step":
-        passes = 2
-        radices = tuple(plan.col_radices) + tuple(plan.row_radices)
-    else:
-        passes = 1
-        radices = plan.radices
-    roofline_s = fft_roofline_seconds(n, batch, radices, itemsize, passes=passes)
-
+    plan = tfft.create_plan(n, precision=precision)
+    t_plan, s_plan = time_plan(plan, batch, samples)
+    times = {}
+    for strategy in ("xla", "staged"):
+        other = tfft.create_plan(n, precision=precision, strategy=strategy)
+        times[strategy] = (t_plan if other.resolve_strategy()
+                           is plan.resolve_strategy()
+                           else time_plan(other, batch, samples)[0])
+    flops = 5.0 * n * float(np.log2(n)) * batch
+    itemsize = jnp.dtype(plan.precision.storage_dtype).itemsize
+    roofline_s = fft_roofline_seconds(n, batch, plan.radices, itemsize)
     return {
         "n": n,
         "batch": batch,
-        "gflops": round(gflops, 1),
-        "time_us": round(r.average_time_ns / 1e3, 1),
-        "sigma_us": round(r.std_deviation_ns / 1e3, 1),
-        "baseline_time_us": round(rb.average_time_ns / 1e3, 1),
-        "vs_baseline": round(rb.average_time_ns / max(r.average_time_ns, 1e-9), 3),
+        "precision": precision,
         "strategy": plan.resolve_strategy().value,
-        "radices": list(plan.radices),
-        "roofline_fraction": round(roofline_s / (r.average_time_ns / 1e9), 3),
+        "gflops": flops / t_plan,
+        "time_us": t_plan / 1e3,
+        "sigma_us": s_plan / 1e3,
+        "baseline_time_us": times["xla"] / 1e3,
+        "staged_time_us": times["staged"] / 1e3,
+        "vs_baseline": times["xla"] / t_plan,
+        "roofline_fraction": roofline_s / (t_plan / 1e9),
     }
 
 
-def main():
+def route_table(samples=20):
+    import tensorfft_tpu as tfft
+
+    rows = []
+    for n, batch in ROUTE_CELLS:
+        for precision in ("bfloat16", "float32"):
+            row = {"n": n, "batch": batch, "precision": precision}
+            for strategy in ("staged", "xla"):
+                plan = tfft.create_plan(n, precision=precision,
+                                        strategy=strategy)
+                t, s = time_plan(plan, batch, samples)
+                row[f"{strategy}_us"] = t / 1e3
+                row[f"{strategy}_sigma_us"] = s / 1e3
+            row["faster"] = ("staged" if row["staged_us"] < row["xla_us"]
+                             else "xla")
+            print(f"N={n:>8d} B={batch:>5d} {precision:>8s}: staged "
+                  f"{row['staged_us']:.1f} us, xla {row['xla_us']:.1f} us "
+                  f"-> {row['faster']}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=16384,
                     help="headline transform length (BASELINE.md row 1)")
@@ -111,46 +116,60 @@ def main():
     ap.add_argument("--precision", default="bfloat16")
     ap.add_argument("--secondary-n", type=int, default=4096,
                     help="also-reported config; 0 disables")
-    ap.add_argument("--smoke", action="store_true",
-                    help="tiny shapes + interpret-friendly (CI)")
-    args = ap.parse_args()
-
-    if args.smoke:
-        args.n, args.batch, args.secondary_n = 256, 256, 0
+    ap.add_argument("--routes", action="store_true",
+                    help="time staged vs xla at the route cells instead")
+    ap.add_argument("--samples", type=int, default=20)
+    args = ap.parse_args(argv)
 
     import jax
 
-    head = _measure_config(args.n, args.batch, args.precision, args.smoke)
-    secondary = None
-    if args.secondary_n:
-        secondary = _measure_config(
-            args.secondary_n, args.batch, args.precision, args.smoke
-        )
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        print(f"bench.py: needs a GPU, JAX found {devices[0].platform!r}",
+              file=sys.stderr)
+        return 2
+    from tensorfft_tpu.utils import device_spec, enable_compile_cache
 
+    enable_compile_cache()
+    card = card_line()
+    print(card)
+    if args.routes:
+        rows = route_table(args.samples)
+        print(json.dumps({"routes": rows, "card": card,
+                          "device_kind": devices[0].device_kind}))
+        return 0
+
+    spec = device_spec(devices[0])
+    head = measure_config(args.n, args.batch, args.precision, args.samples)
     result = {
         "metric": "batched_1d_fft_throughput",
         "value": head["gflops"],
         "unit": "GFLOP/s",
         "vs_baseline": head["vs_baseline"],
+        "baseline": "cuFFT via jnp.fft in complex64 on the same card",
         "config": {
-            "n": head["n"],
-            "batch": head["batch"],
-            "precision": args.precision,
-            "strategy": head["strategy"],
-            "radices": head["radices"],
+            "n": head["n"], "batch": head["batch"],
+            "precision": args.precision, "strategy": head["strategy"],
             "flop_convention": "5*N*log2(N) per transform",
         },
         "time_us": head["time_us"],
         "sigma_us": head["sigma_us"],
         "baseline_time_us": head["baseline_time_us"],
-        "baseline": "staged-XLA same-math path (jnp.fft unsupported on this TPU backend)",
+        "staged_time_us": head["staged_time_us"],
         "roofline_fraction": head["roofline_fraction"],
-        "measurement": "interleaved chain_compare medians (decision-grade)",
-        "platform": jax.devices()[0].platform,
+        "roofline_source": spec.source,
+        "measurement": f"mean of {args.samples} block_until_ready calls "
+                       "after 3 warm-up calls",
+        "card": card,
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
     }
-    if secondary is not None:
-        result["secondary"] = secondary
+    if args.secondary_n:
+        result["secondary"] = measure_config(
+            args.secondary_n, args.batch, args.precision, args.samples)
     print(json.dumps(result))
+    return 0
 
 
 if __name__ == "__main__":

@@ -6,9 +6,8 @@ inputs (frequency cutoff 256, matching AccuracyTest.cu:22), writing
 Accuracy_Test.dat (+ .json).  The XLA-fp32 comparison curve
 (AccuracyTestCuFFT.cu analog) is produced with --baseline.
 
-Run on TPU (default env) for production numbers or CPU (JAX_PLATFORMS=cpu)
-for exact reproduction of TPU matmul numerics via the explicit operand
-decompositions.
+Runs on the GPU by default; on the CPU (JAX_PLATFORMS=cpu) the staged route
+reproduces the same stage numerics via the explicit operand decompositions.
 """
 import argparse
 import sys
@@ -30,15 +29,17 @@ def main():
                     choices=["staged-f32", "xla"],
                     help="measure a baseline instead (cuFFT-fp32 analog, "
                          "AccuracyTestCuFFT.cu:53-56): 'staged-f32' = the "
-                         "plain-XLA staged path at float32 policy (runs on "
-                         "this TPU backend); 'xla' = jnp.fft fp32 (CPU only "
-                         "— complex dtypes are unsupported on this TPU)")
+                         "staged route at float32 policy; 'xla' = jnp.fft "
+                         "in complex64 (cuFFT on the GPU)")
     ap.add_argument("--tuning", default=None,
                     help="'auto' runs each length under its tuner-cache "
                          "winner (the shipping plan) instead of the default")
     ap.add_argument("--out", default="Accuracy_Test.dat")
     args = ap.parse_args()
 
+    from tensorfft_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     import tensorfft_tpu as tfft
     from tensorfft_tpu.testing import (
         deviation, fft_oracle, get_random_weights, sine_superposition,

@@ -19,12 +19,15 @@ def main():
     ap.add_argument("--precision", default="bfloat16")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--baseline", action="store_true",
-                    help="measure the staged-XLA float32 path instead (the "
+                    help="measure the staged float32 route instead (the "
                          "on-device AccuracyTestBandwidthCuFFT.cu:53-56 "
-                         "analog; jnp.fft cannot run on this TPU backend)")
+                         "analog)")
     ap.add_argument("--out", default="Accuracy_Bandwidth.dat")
     args = ap.parse_args()
 
+    from tensorfft_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     import tensorfft_tpu as tfft
     from tensorfft_tpu.testing import (
         deviation, fft_oracle, get_random_weights, sine_superposition,

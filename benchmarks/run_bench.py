@@ -1,7 +1,8 @@
 """Throughput sweep over fft_length (FFTBenchSinlge.cu:10-44 analog [sic]).
 
 Benchmarks the library across N (default 4096..2^22 like the reference's
-bench range), optionally consuming a tuner cache, writing BenchResults.dat.
+bench range), writing BenchResults.dat.  Each row is the mean of
+block_until_ready-bracketed calls after warm-up.
 """
 import argparse
 import sys
@@ -19,74 +20,48 @@ def main():
     ap.add_argument("--batch-elems", type=int, default=1 << 24,
                     help="total elements per measurement (batch = elems/N)")
     ap.add_argument("--precision", default="bfloat16")
-    ap.add_argument("--use-cache", action="store_true")
-    ap.add_argument("--windows", type=int, default=3,
-                    help="chain_measure windows per row; the row reports the "
-                         "median (cross-window drift reaches tens of percent "
-                         "on the shared relay — single windows are not "
-                         "decision-grade)")
-    ap.add_argument("--out", default="results/BenchResults.dat",
+    ap.add_argument("--samples", type=int, default=20,
+                    help="timed calls per row after 3 warm-up calls")
+    ap.add_argument("--out", default="BenchResults.dat",
                     help="output table path (BenchResults.dat format)")
     ap.add_argument("--baseline", default=None, choices=["staged", "xla"],
-                    help="bench a BASELINE strategy instead of the tuned "
-                         "library path (the reference benches its baseline, "
-                         "cuFFT, at every length as a separate driver — "
-                         "CuFFTBenchSingle.cu:10-40).  'staged' is the "
-                         "plain-XLA stage loop; ignores the tuner cache")
+                    help="bench one strategy instead of the routed default "
+                         "(the reference benches its baseline, cuFFT, at "
+                         "every length as a separate driver — "
+                         "CuFFTBenchSingle.cu:10-40)")
     args = ap.parse_args()
-    if args.baseline and args.use_cache:
-        ap.error("--baseline ignores the tuner cache; drop --use-cache")
 
-    import jax
     import jax.numpy as jnp
 
     import tensorfft_tpu as tfft
+    from tensorfft_tpu.fft import _fft_split_jit
     from tensorfft_tpu.testing.io import write_bench_table
-    from tensorfft_tpu.testing.timer import chain_measure
-    from tensorfft_tpu.tuning import TunerCache
-    from tensorfft_tpu.tuning.tuner import chain_step_for_plan
+    from tensorfft_tpu.testing.timer import measure
+    from tensorfft_tpu.utils import enable_compile_cache
 
-    cache = TunerCache() if args.use_cache else None
-    platform = jax.devices()[0].platform
+    enable_compile_cache()
     storage = tfft.Precision(args.precision).storage_dtype
 
     rows = []
     n = args.start
     while n <= args.end:
         batch = max(1, args.batch_elems // n)
-        tuning = (
-            cache.get(n, args.precision, platform, batch=batch)
-            if cache else None
-        )
-        if args.baseline:
-            plan = tfft.create_plan(n, precision=args.precision,
-                                    strategy=args.baseline)
-        else:
-            plan = tfft.create_plan(n, precision=args.precision,
-                                    tuning=tuning)
+        plan = tfft.create_plan(n, precision=args.precision,
+                                strategy=args.baseline or "auto")
         rng = np.random.default_rng(0)
         re = jnp.asarray(rng.standard_normal((batch, n)), storage)
         im = jnp.asarray(rng.standard_normal((batch, n)), storage)
-        # Layout-stationary step (four-step measures fwd+inv and halves;
-        # see tuning.tuner.chain_step_for_plan).
-        fn, divisor = chain_step_for_plan(plan)
-        ts = []
-        for _ in range(max(1, args.windows)):
-            r = chain_measure(fn, (re, im))
-            t = r.average_time_ns / divisor
-            if not np.isnan(t):
-                ts.append(t)
-        ts = ts or [float("nan")]
-        t_ns = float(np.median(ts))
+        r = measure(lambda a, b: _fft_split_jit(a, b, plan, True), (re, im),
+                    warmup=3, samples=args.samples)
+        t_ns = r.average_time_ns
         flops = 5.0 * n * float(np.log2(n)) * batch
         gflops = flops / t_ns
         rows.append({
             "fft_length": n, "batch": batch,
             "avg_time_us": t_ns / 1e3,
-            "sigma_us": float(np.std(ts)) / 1e3,
+            "sigma_us": r.std_deviation_ns / 1e3,
             "gflops": gflops,
             "strategy": plan.resolve_strategy().value,
-            "tuned": tuning is not None,
         })
         print(f"N={n:>9d} B={batch:>6d}: {t_ns/1e3:9.1f} us  "
               f"{gflops:8.1f} GFLOP/s  [{plan.resolve_strategy().value}]")

@@ -24,6 +24,9 @@ def main():
                          "winner instead of the default plan")
     args = ap.parse_args()
 
+    from tensorfft_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     from tensorfft_tpu.testing.conformance import run_unit_sweep
 
     ok = run_unit_sweep(

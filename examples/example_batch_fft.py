@@ -1,8 +1,8 @@
 """Batched FFT (ExampleBatchFFT.cu:21-85 analog).
 
 The reference demos 20 FFTs of N=4096 overlapped via one CUDA stream each
-(ComputeFFT.h:166-208); here the batch is simply a leading axis — one fused
-Pallas launch covers the whole batch.
+(ComputeFFT.h:166-208); here the batch is simply a leading axis of one
+jitted transform.
 """
 import sys
 from pathlib import Path

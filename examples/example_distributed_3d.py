@@ -1,7 +1,7 @@
 """Distributed 3D FFT + Poisson solve (the config-5 demo).
 
-On a multi-chip TPU slice this runs the slab-decomposed 3D FFT with
-all_to_all transposes over ICI; on a single host run with
+On several GPUs this runs the slab-decomposed 3D FFT with all_to_all
+transposes over NVLink; without them run with
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 to execute the same collectives on a virtual 8-device mesh.
 """

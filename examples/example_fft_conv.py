@@ -4,8 +4,8 @@ Blurs an image by circular 2D convolution with a Gaussian kernel via the
 convolution theorem (ifft2(fft2(img) * fft2(ker))), and cross-correlates two
 real 1D signals through the R2C/C2R pair — the two application models the
 reference lacks entirely (its scope ends at the transform itself,
-ExampleSingleFFT.cu:20-96).  Run in the default env for TPU, or
-``JAX_PLATFORMS=cpu`` (via jax.config in a script) for host execution.
+ExampleSingleFFT.cu:20-96).  Runs on the GPU by default, or on the host
+with ``JAX_PLATFORMS=cpu``.
 """
 import sys
 from pathlib import Path

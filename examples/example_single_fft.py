@@ -1,8 +1,8 @@
 """Single large FFT, end to end (ExampleSingleFFT.cu:20-96 analog).
 
 The reference demo computes one N=2^25 FFT with Mode_4096; here one N=2^22
-half-precision FFT through the four-step path, verified against the fp64
-oracle.  Run in the default env for TPU.
+half-precision FFT on the route plan.route picks (cuFFT on a GPU), verified
+against the fp64 oracle.
 """
 import sys
 from pathlib import Path
@@ -27,7 +27,7 @@ def main():
         print("plan rejected:", why)
         return 1
     print(f"plan: strategy={plan.resolve_strategy().value} "
-          f"split={plan.four_step_split}")
+          f"radices={plan.radices}")
 
     with ScopeTimer("first call (incl. compile)"):
         o_re, o_im = tfft.fft_split(re, im, plan)

@@ -1,16 +1,16 @@
-"""tensorfft_tpu — a TPU-native FFT framework (JAX / XLA / Pallas).
+"""tensorfft_tpu — an FFT library in JAX / XLA for NVIDIA GPUs.
 
-Built from scratch with the capabilities of CPestka/Tensor-FFT (reference
-mounted at /root/reference): half-precision complex FFTs for power-of-two
-lengths, computed as Cooley-Tukey stages expressed as DFT-matrix multiplies on
-matrix hardware — the reference's CUDA WMMA 16x16 tensor-core kernels become
-Pallas MXU kernels with fp32 accumulation, its launch-geometry planner becomes
-a pure-Python plan that is a static jit argument, its stream-per-FFT batching
-becomes a leading batch axis, and its dead multi-GPU code becomes real
-`jax.sharding` data/pencil parallelism.  See SURVEY.md for the layer map.
+Built from scratch with the capabilities of CPestka/Tensor-FFT: half-precision
+complex FFTs for power-of-two lengths, computed as Cooley-Tukey stages
+expressed as DFT-matrix multiplies with fp32 accumulation, or through cuFFT
+where that is faster; its launch-geometry planner becomes a pure-Python plan
+that is a static jit argument, its stream-per-FFT batching becomes a leading
+batch axis, and its dead multi-GPU code becomes real `jax.sharding`
+data/pencil parallelism.  See SURVEY.md for the layer map.
 
 Public API:
     create_plan, FFTPlan, Precision, Strategy   — planning (Plan.h analog)
+    route                                       — strategy per platform/length
     fft, ifft, fft_split, ifft_split            — 1D C2C (ComputeFFT.h analog)
     rfft, irfft                                 — real transforms (extension)
     fft2, ifft2, fftn, ifftn                    — N-D (extension)
@@ -23,6 +23,7 @@ from tensorfft_tpu.plan import (
     Strategy,
     create_plan,
     plan_works_on_device,
+    route,
 )
 from tensorfft_tpu.fft import (
     fft,
@@ -70,6 +71,7 @@ __all__ = [
     "Strategy",
     "create_plan",
     "plan_works_on_device",
+    "route",
     "fft",
     "ifft",
     "fft_split",

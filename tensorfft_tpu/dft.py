@@ -1,15 +1,14 @@
 """DFT-matrix and twiddle-table construction.
 
-TPU-native replacement for the reference's on-the-fly twiddle computation and
+Replacement for the reference's on-the-fly twiddle computation and
 DFT-matrix literals: the reference builds its 16x16 DFT matrix per warp with
 fp32 ``cosf``/``sinf`` rounded to fp16 (TensorRadix16.cu:113-125) or loads
 fp16-exact literals (DFTMatrix.h:7-186), and computes per-element twiddles with
 transcendentals in the hot loop (TensorRadix16.cu:104-145).
 
-On TPU, transcendentals in the hot loop waste VPU issue slots and lose
-accuracy; instead every table is precomputed here in float64 on the host,
-rounded once to the compute dtype (fp32), and staged into VMEM as kernel
-constants/inputs.  Tables are cached per (kind, shape, dtype, sign).
+Here every table is precomputed in float64 on the host, rounded once to the
+compute dtype (fp32), and passed to the jitted stages as constants.  Tables
+are cached per (kind, shape, dtype, sign).
 
 If the native helper library is built (tensorfft_tpu/native), large tables are
 generated by multithreaded C++; otherwise NumPy vectorized code is used.  Both
@@ -25,7 +24,6 @@ import numpy as np
 __all__ = [
     "dft_matrix",
     "stage_twiddle",
-    "four_step_twiddle_factors",
     "FORWARD",
     "INVERSE",
 ]
@@ -98,45 +96,3 @@ def stage_twiddle(radix: int, prior_length: int, dtype=np.float32, sign: int = F
     """Stage twiddle table (re, im) of shape (radix, prior_length) as ``dtype``."""
     re, im = _stage_twiddle_f64(radix, prior_length, sign)
     return np.asarray(re, dtype=dtype), np.asarray(im, dtype=dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _four_step_twiddle_f64(n1: int, n2: int, lane_tile: int, sign: int):
-    """Rank-separated four-step twiddle tables.
-
-    The Bailey four-step twiddle W[k1, n2] = exp(sign*2*pi*i*k1*n2/(n1*n2)) is a
-    data-sized (n1, n2) table; streaming it would double the first pass's HBM
-    traffic.  Writing n2 = a*lane_tile + b separates it exactly:
-
-        W[k1, a*T + b] = P[k1, a] * Q[k1, b],
-        P[k1, a] = exp(sign*2*pi*i*k1*a*T/n)   (n1, n2/T)
-        Q[k1, b] = exp(sign*2*pi*i*k1*b/n)     (n1, T)
-
-    so a kernel block over lane tile ``a`` reconstructs its (n1, T) twiddle
-    tile from one column of P and all of Q with one complex multiply on the
-    VPU.  Returns (p_re, p_im, q_re, q_im) float64.
-    """
-    n = n1 * n2
-    blocks = n2 // lane_tile
-    k1 = np.arange(n1, dtype=np.float64)[:, None]
-    a = np.arange(blocks, dtype=np.float64)[None, :]
-    b = np.arange(lane_tile, dtype=np.float64)[None, :]
-    p_phase = (sign * 2.0 * np.pi / n) * (k1 * (a * lane_tile))
-    q_phase = (sign * 2.0 * np.pi / n) * (k1 * b)
-    return (
-        np.cos(p_phase),
-        np.sin(p_phase),
-        np.cos(q_phase),
-        np.sin(q_phase),
-    )
-
-
-def four_step_twiddle_factors(
-    n1: int, n2: int, lane_tile: int, dtype=np.float32, sign: int = FORWARD
-):
-    """(p_re, p_im, q_re, q_im) tables as ``dtype`` (see _four_step_twiddle_f64)."""
-    if n2 % lane_tile != 0:
-        raise ValueError(f"n2={n2} not divisible by lane_tile={lane_tile}")
-    p_re, p_im, q_re, q_im = _four_step_twiddle_f64(n1, n2, lane_tile, sign)
-    cast = lambda x: np.asarray(x, dtype=dtype)
-    return cast(p_re), cast(p_im), cast(q_re), cast(q_im)

@@ -1,6 +1,6 @@
 """Public FFT execution layer.
 
-TPU-native counterpart of the reference host dispatch ``ComputeFFT``
+Counterpart of the reference host dispatch ``ComputeFFT``
 (/root/reference/src/base/ComputeFFT.h:54-151 single, :162-293 batched): where
 the reference sequences kernel launches and ping-pongs device buffers through
 a DataHandler (DataHandler.h:22-166), here execution is a pure jitted function
@@ -8,15 +8,11 @@ of the input arrays; batching is a leading axis (XLA overlaps what the
 reference used one CUDA stream per FFT for, ComputeFFT.h:166-208), and device
 memory is owned by JAX.
 
-Strategies (plan.resolve_strategy()):
-  * FUSED      — one Pallas kernel holds the whole transform in VMEM
-                 (the Mode_256/Mode_4096 fusion idea taken to its limit).
-  * FOUR_STEP  — Bailey decomposition N = N1*N2: columns pass + twiddle +
-                 rows pass, each a fused kernel; replaces the reference's
-                 log16(N) global-memory round trips with ~3.
-  * STAGED     — plain-JAX stage loop (known-good path; XLA-fused).
-  * XLA        — jnp.fft.fft, the on-device comparison baseline (the role
-                 cuFFT plays in the reference harness).
+Strategies (plan.resolve_strategy(), chosen by plan.route under 'auto'):
+  * STAGED — plain-JAX Stockham stage loop, one DFT-matrix product per stage
+             (ops/stages_jax.py; XLA fuses what it can).
+  * XLA    — jnp.fft: cuFFT on the GPU, the library the reference harness
+             compares against.
 """
 from __future__ import annotations
 
@@ -28,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from tensorfft_tpu import dft
-from tensorfft_tpu.plan import FFTPlan, Strategy, create_plan
+from tensorfft_tpu.plan import FFTPlan, Precision, Strategy, create_plan
 from tensorfft_tpu.ops import stages_jax
 
 __all__ = [
@@ -53,64 +49,40 @@ def stage_scales(radices, scaling: str, forward: bool) -> Tuple[float, ...]:
     raise ValueError(f"bad scaling {scaling!r}")
 
 
-def _block_engine(plan: FFTPlan):
-    """Return fn(re, im, radices, scales, sign) -> (re, im) on (N, B) planes.
+def _xla_fft(re, im, plan: FFTPlan, forward: bool, axis: int = -1):
+    """The XLA route: ``jnp.fft`` along ``axis`` (cuFFT on the GPU).
 
-    (FOUR_STEP never reaches here — _fft_split_core routes it to the fused
-    batch-major four-step kernels before the transform-major path.)
+    complex64 for every policy but float64, which runs in complex128.  The
+    library's scaling conventions are numpy's ``norm`` modes: 'forward' is
+    1/N on the forward transform, 'none' is numpy's 'backward', 'ortho' is
+    'ortho'.
     """
-    strategy = plan.resolve_strategy()
-    if strategy is Strategy.FUSED:
-        from tensorfft_tpu.ops import fused_pallas
-
-        def engine(re, im, radices, scales, sign):
-            return fused_pallas.fused_fft(
-                re, im, radices=radices, scales=scales, sign=sign,
-                lane_tile=plan.lane_tile,
-                algorithm=plan.precision.dot_algorithm,
-                grouped=plan.grouped,
-                state_dtype=plan.state_dtype,
-                kloop_width=plan.kloop_width,
-                complex_mult=plan.complex_mult,
-                engine=plan.engine,
-                first_dot=plan.first_dot,
-                interleave_downcast=plan.interleave_downcast,
-            )
-
-        return engine
-
-    def engine(re, im, radices, scales, sign):
-        return stages_jax.apply_stages(
-            re, im, radices, scales, sign,
-            algorithm=plan.precision.dot_algorithm,
-        )
-
-    return engine
+    real = jnp.float64 if plan.precision is Precision.FLOAT64 else jnp.float32
+    x = jax.lax.complex(re.astype(real), im.astype(real))
+    norm = {"forward": "forward", "none": "backward", "ortho": "ortho"}[
+        plan.scaling]
+    fn = jnp.fft.fft if forward else jnp.fft.ifft
+    x = fn(x, axis=axis, norm=norm)
+    return jnp.real(x), jnp.imag(x)
 
 
-def _fft_transform_major(re, im, plan: FFTPlan, forward: bool):
-    """Core: transform along axis 0 of (N, B) planes."""
-    n, b = re.shape
-    assert n == plan.fft_length
+def transform_major(re, im, plan: FFTPlan, forward: bool):
+    """Transform along axis 0 of (N, B) planes on the plan's route.
+
+    The per-shard engine of the distributed paths (parallel/pencil.py); the
+    staged loop's native layout (ops/stages_jax.py).
+    """
+    n = re.shape[0]
+    if n != plan.fft_length:
+        raise ValueError(f"plan is for fft_length {plan.fft_length}, data has {n}")
+    if plan.resolve_strategy() is Strategy.XLA:
+        return _xla_fft(re, im, plan, forward, axis=0)
     sign = dft.FORWARD if forward else dft.INVERSE
-    strategy = plan.resolve_strategy()
-    engine = _block_engine(plan)
-
-    if strategy in (Strategy.FUSED, Strategy.STAGED):
-        scales = stage_scales(plan.radices, plan.scaling, forward)
-        return engine(re, im, plan.radices, scales, sign)
-
-    if strategy is Strategy.XLA:
-        x = re.astype(jnp.float32) + 1j * im.astype(jnp.float32)
-        x = jnp.fft.fft(x, axis=0) if forward else jnp.fft.ifft(x, axis=0)
-        scales = stage_scales(plan.radices, plan.scaling, forward)
-        total = float(np.prod(scales))
-        if not forward:
-            total *= n  # jnp.ifft already applies 1/N
-        x = x * total
-        return jnp.real(x), jnp.imag(x)
-
-    raise ValueError(f"unhandled strategy {strategy}")
+    scales = stage_scales(plan.radices, plan.scaling, forward)
+    return stages_jax.apply_stages(
+        re, im, plan.radices, scales, sign,
+        algorithm=plan.precision.dot_algorithm,
+    )
 
 
 @functools.partial(jax.jit, static_argnames=("plan", "forward"))
@@ -122,103 +94,19 @@ def _fft_split_jit(re, im, plan: FFTPlan, forward: bool):
     return out_re.astype(storage), out_im.astype(storage)
 
 
-def four_step_call_kwargs(plan: FFTPlan, forward: bool) -> dict:
-    """Static kwargs for the ops/four_step_pallas entry points of ``plan``.
-
-    Shared by the C2C dispatch below and the R2C/C2R fused-epilogue paths
-    (rfft.py) so every four-step call site consumes the tuned plan knobs
-    identically."""
-    n1, n2 = plan.four_step_split
-    return dict(
-        n1=n1, n2=n2,
-        radices1=plan.col_radices, radices2=plan.row_radices,
-        scales1=stage_scales(plan.col_radices, plan.scaling, forward),
-        scales2=stage_scales(plan.row_radices, plan.scaling, forward),
-        sign=dft.FORWARD if forward else dft.INVERSE,
-        lane_tile=plan.lane_tile,
-        algorithm=plan.precision.dot_algorithm,
-        grouped=plan.grouped,
-        state_dtype=plan.state_dtype,
-        complex_mult=plan.complex_mult,
-        first_dot=plan.first_dot,
-        engine=plan.engine,
-        k1_tile=plan.k1_tile,
-    )
-
-
 def _fft_split_core(re, im, plan, forward):
+    """Transform along the last axis; leading axes are batch."""
+    if plan.resolve_strategy() is Strategy.XLA:
+        return _xla_fft(re, im, plan, forward)
     batch_shape = re.shape[:-1]
     n = re.shape[-1]
     b = int(np.prod(batch_shape)) if batch_shape else 1
-
-    if plan.resolve_strategy() is Strategy.FOUR_STEP:
-        # Batch-major fused path: two Pallas passes, transposes absorbed into
-        # the kernels' block specs (ops/four_step_pallas.py).
-        from tensorfft_tpu.ops import four_step_pallas
-
-        out_re, out_im = four_step_pallas.four_step_fft(
-            re.reshape(b, n), im.reshape(b, n),
-            **four_step_call_kwargs(plan, forward),
-        )
-        return (
-            out_re.reshape(*batch_shape, n),
-            out_im.reshape(*batch_shape, n),
-        )
-
-    if (
-        plan.resolve_strategy() is Strategy.FUSED
-        and _batch_major_ok(plan, b)
-    ):
-        # Batch-major fused kernel: the (B,N)->(N,B) transpose happens once
-        # in VMEM inside the kernel instead of as two XLA HBM passes around
-        # it (round-1 driver measurements showed those transposes costing
-        # ~40% of the whole fused pipeline).
-        from tensorfft_tpu.ops import four_step_pallas
-
-        sign = dft.FORWARD if forward else dft.INVERSE
-        scales = stage_scales(plan.radices, plan.scaling, forward)
-        out_re, out_im = four_step_pallas.fused_fft_batch_major(
-            re.reshape(b, n), im.reshape(b, n),
-            radices=plan.radices, scales=scales, sign=sign,
-            algorithm=plan.precision.dot_algorithm, grouped=plan.grouped,
-            state_dtype=plan.state_dtype, complex_mult=plan.complex_mult,
-            first_dot=plan.first_dot, engine=plan.engine,
-        )
-        return (
-            out_re.reshape(*batch_shape, n),
-            out_im.reshape(*batch_shape, n),
-        )
-
-    re2 = re.reshape(b, n).T
-    im2 = im.reshape(b, n).T
-    out_re, out_im = _fft_transform_major(re2, im2, plan, forward)
+    out_re, out_im = transform_major(
+        re.reshape(b, n).T, im.reshape(b, n).T, plan, forward)
     return (
         out_re.T.reshape(*batch_shape, n),
         out_im.T.reshape(*batch_shape, n),
     )
-
-
-def _batch_major_ok(plan: FFTPlan, b: int) -> bool:
-    """Whether the batch-major fused kernel should (and legally can) run.
-
-    Measured v5e (calibrated chain timer, batch=4096 bf16,
-    benchmarks/exp_decompose_fused.py): the XLA (B,N)<->(N,B) transposes
-    around the transform-major kernel cost ~nothing (XLA folds them into the
-    pallas operand layout — public 401 us vs kernel-alone 401 us at N=4096),
-    while batch_major's in-VMEM sublane transpose costs 60%+ (644 us, and
-    fails to compile at N=16384) — so 'auto' resolves to transform_major and
-    batch_major stays a tuner option only.
-
-    Mosaic block shapes also need the sublane dim to be a multiple of 8 or
-    the full array axis; the kernel's row tile is the largest power-of-two
-    divisor of b (capped at 128), so small/odd batches always fall back.
-    """
-    if plan.fused_layout != "batch_major":
-        return False
-    rt = 1
-    while rt * 2 <= 128 and b % (rt * 2) == 0:
-        rt *= 2
-    return rt >= 8 or rt == b
 
 
 def _ensure_plan(n: int, plan: Optional[FFTPlan], **kwargs) -> FFTPlan:
@@ -260,9 +148,8 @@ def ifft_split(re, im, plan: Optional[FFTPlan] = None, **plan_kwargs):
 def _to_split(x):
     """Split a complex (or real) array into planar (re, im) on the host.
 
-    Complex dtypes are split in NumPy: TPU backends may lack complex support
-    entirely (the device-native representation is split planar, exactly like
-    the reference's __half RE/IM arrays, ComputeFFT.h:1-16).
+    The device-native representation is split planar, exactly like the
+    reference's __half RE/IM arrays (ComputeFFT.h:1-16).
     """
     x = np.asarray(x)
     if np.iscomplexobj(x):
@@ -279,9 +166,8 @@ def fft(x, plan: Optional[FFTPlan] = None, **plan_kwargs):
     """Forward FFT of a complex (or real) array along the last axis.
 
     Host-boundary convenience wrapper over :func:`fft_split`: splits/joins
-    complex data in NumPy (returns a NumPy complex64 array) because complex
-    dtypes don't exist on the TPU compute path.  Use :func:`fft_split` to stay
-    on device.
+    complex data in NumPy (returns a NumPy complex64 array).  Use
+    :func:`fft_split` to stay on device.
     """
     re, im = _to_split(x)
     o_re, o_im = fft_split(re, im, plan, **plan_kwargs)
@@ -301,76 +187,7 @@ def ifft(x, plan: Optional[FFTPlan] = None, **plan_kwargs):
 # ---------------------------------------------------------------------------
 
 def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
-    # Fast path: a transform over the last two axes with both lengths within
-    # the fused-kernel range runs as two Pallas passes with the transposes
-    # absorbed into block specs (ops/four_step_pallas.fft2_fused) — the
-    # config-3 "row-column with fused transpose" path.
-    axes_norm = tuple(a % re.ndim for a in axes)
-    if (
-        len(axes_norm) >= 3
-        and re.ndim >= 2
-        and {re.ndim - 2, re.ndim - 1} <= set(axes_norm)
-        and not plans
-    ):
-        # N-D: peel the trailing two axes through the fused 2D path, then
-        # handle the remaining axes with the generic loop.
-        re, im = _fftn_split(
-            re, im, (re.ndim - 2, re.ndim - 1), plans, forward, plan_kwargs
-        )
-        rest = tuple(a for a in axes_norm if a < re.ndim - 2)
-        return _fftn_split(re, im, rest, plans, forward, plan_kwargs)
-    if (
-        len(axes_norm) == 2
-        and re.ndim >= 2
-        and set(axes_norm) == {re.ndim - 2, re.ndim - 1}
-        and not plans
-    ):
-        h, w = re.shape[-2], re.shape[-1]
-        from tensorfft_tpu.plan import is_power_of_2
-
-        # Inner plans consult the tuner cache by default so the 2D/N-D paths
-        # inherit single-chip tuning wins (round-2 verdict item 4; reference
-        # pattern: production plans always consume tuner output,
-        # Plan.h:197-255).  An explicit tuning= kwarg still overrides.
-        kw = dict(plan_kwargs)
-        kw.setdefault("tuning", "auto")
-        plan_h = create_plan(h, **kw) if is_power_of_2(h) else None
-        plan_w = create_plan(w, **kw) if is_power_of_2(w) else None
-        if (
-            plan_h is not None and plan_w is not None
-            and plan_h.resolve_strategy() is Strategy.FUSED
-            and plan_w.resolve_strategy() is Strategy.FUSED
-            and h >= 8
-        ):
-            from tensorfft_tpu.ops import four_step_pallas
-
-            batch_shape = re.shape[:-2]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            sign = dft.FORWARD if forward else dft.INVERSE
-            storage = plan_h.precision.storage_dtype
-            o_re, o_im = four_step_pallas.fft2_fused(
-                re.reshape(b, h, w).astype(storage),
-                im.reshape(b, h, w).astype(storage),
-                radices1=plan_h.radices, radices2=plan_w.radices,
-                scales1=stage_scales(plan_h.radices, plan_h.scaling, forward),
-                scales2=stage_scales(plan_w.radices, plan_w.scaling, forward),
-                sign=sign, lane_tile=plan_h.lane_tile,
-                algorithm=plan_h.precision.dot_algorithm,
-                grouped=(plan_h.grouped, plan_w.grouped),
-                state_dtype=(plan_h.state_dtype
-                             if plan_h.state_dtype == plan_w.state_dtype
-                             else "float32"),
-                complex_mult=(plan_h.complex_mult
-                              if plan_h.complex_mult == plan_w.complex_mult
-                              else "block"),
-                engine=(plan_h.engine if plan_h.engine == plan_w.engine
-                        else "stacked"),
-            )
-            return (
-                o_re.reshape(*batch_shape, h, w),
-                o_im.reshape(*batch_shape, h, w),
-            )
-
+    # Row-column decomposition: one 1D transform per axis.
     for ax in axes:
         re_m = jnp.moveaxis(re, ax, -1)
         im_m = jnp.moveaxis(im, ax, -1)

@@ -6,7 +6,7 @@ split-complex host buffers across (DataHandler.h:22-82); DataBatchHandler
 batches that (:86-166); ComputeFFT ping-pongs the input/result arrays and
 tracks which holds the answer via ``results_in_results_`` (Plan.h:109-115).
 
-On TPU none of that machinery exists: JAX owns allocation, jit owns the
+Under JAX none of that machinery exists: JAX owns allocation, jit owns the
 ping-pong, and donation replaces the explicit result-buffer protocol.  This
 module is the thin, documented surface of that mapping — host staging into
 the split planar device layout, optional buffer donation, and helpers the
@@ -63,7 +63,7 @@ def split_to_interleaved(re, im):
 
 
 def donate_fft(plan: FFTPlan, forward: bool = True):
-    """A jitted FFT whose input buffers are donated (the TPU-native
+    """A jitted FFT whose input buffers are donated (the JAX
     equivalent of the reference reusing its input arrays as the ping-pong
     scratch, ComputeFFT.h:89-120): XLA may alias them for the output,
     halving peak HBM residency for in-place-style pipelines."""

@@ -1,6 +1,6 @@
 // Native host-side core for tensorfft_tpu.
 //
-// TPU-native counterpart of the reference's native host layers: the planner
+// Counterpart of the reference's native host layers: the planner
 // (src/base/Plan.h — validation + stage factorization), the twiddle/DFT table
 // generation that the reference does per-warp on device with cosf/sinf
 // (TensorRadix16.cu:104-145, DFTMatrix.h), the digit-reversal index math of
@@ -75,7 +75,7 @@ int tfft_exact_log2(int64_t x, int* out) {
   return 0;
 }
 
-// Factor n = 2^p into block-complex-MXU-optimal radices (the DP from
+// Factor n = 2^p into padded-MAC-optimal block-complex radices (the DP from
 // tensorfft_tpu/plan.py::optimal_radices, natively).  out_radices must hold
 // >= 32 ints; *out_count receives the stage count.
 int tfft_optimal_radices(int64_t n, int* out_radices, int* out_count) {

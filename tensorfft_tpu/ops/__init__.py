@@ -1,1 +1,1 @@
-"""Compute kernels: plain-JAX stage engine and Pallas TPU kernels."""
+"""Compute kernels: the plain-JAX stage engine and its dot algorithms."""

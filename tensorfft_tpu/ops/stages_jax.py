@@ -1,24 +1,22 @@
-"""Stockham stage engine in plain JAX (the known-good path).
+"""Stockham stage engine in plain JAX (the staged route).
 
-This is the TPU-native re-expression of the reference's kernel pipeline
-(ComputeFFT.h:54-151): where the reference launches one base kernel
-(TensorFFT256.cu / TensorFFT4096.cu) followed by ping-ponged TensorRadix16 and
-Radix2 launches, here every Cooley-Tukey stage is one complex matmul
-(3 Karatsuba real matmuls) over a transform-major (N, B) layout, composed
-functionally and left to XLA to schedule.  The same stage math runs inside the
-fused Pallas kernel (ops/fused_pallas.py) on VMEM-resident blocks.
+A re-expression of the reference's kernel pipeline (ComputeFFT.h:54-151):
+where the reference launches one base kernel (TensorFFT256.cu /
+TensorFFT4096.cu) followed by ping-ponged TensorRadix16 and Radix2 launches,
+here every Cooley-Tukey stage is one complex matmul over a transform-major
+(N, B) layout, composed functionally and left to XLA to schedule.
 
 Layout invariant (DIT Stockham, autosort — no digit-reversal pass needed,
 unlike the reference's fused gather at TensorFFT256.cu:99-178):
 
   After j stages with K = prod(radices[:j]), the state A has shape
   (K, (N//K) * B): row k holds DFT_K bin k of every length-K decimated
-  subsequence of the input; batch rides the innermost (lane) dimension.
+  subsequence of the input; batch rides the innermost dimension.
 
 Each stage, for radix R with M = N//(K*R):
-  1. view (K, R, M*B), swap to (R, K, M*B)      [sublane shuffle]
+  1. view (K, R, M*B), swap to (R, K, M*B)      [transpose]
   2. twiddle multiply by W[r, k] (skipped at stage 0 where K == 1)
-  3. complex matmul by the (pre-scaled) R-point DFT matrix on the MXU
+  3. complex matmul by the (pre-scaled) R-point DFT matrix
   4. rows (t, k) merge into the new K = R*K     [free reshape]
 """
 from __future__ import annotations
@@ -66,11 +64,11 @@ def complex_matmul(
     d_re, d_im, d_sum, z_re, z_im, *, algorithm: str = "bf16",
     karatsuba: bool = False,
 ):
-    """(d_re + i*d_im) @ (z_re + i*z_im) with fp32 MXU accumulation.
+    """(d_re + i*d_im) @ (z_re + i*z_im) with fp32 accumulation.
 
-    Karatsuba (3 real matmuls instead of 4) trades one MXU pass for three VPU
-    adds — a win whenever the contraction dim is MXU-bound.  d_sum = d_re+d_im
-    is precomputed on the host in f64.
+    Karatsuba (3 real matmuls instead of 4) trades one product for three
+    elementwise adds — a win whenever the products bound the stage.
+    d_sum = d_re+d_im is precomputed on the host in f64.
     """
     if karatsuba:
         m1 = dots.dot(d_sum, z_re, algorithm)

@@ -1,7 +1,7 @@
 """Digit-reversal reordering as XLA reshapes/transposes.
 
 Reference parity for the standalone TransposeKernel (Transposer.cu:65-93) and
-the fused gather inside the base kernels (TensorFFT256.cu:99-178): on TPU the
+the fused gather inside the base kernels (TensorFFT256.cu:99-178): here the
 mixed-radix digit reversal is exactly a multi-axis tensor transpose, so no
 kernel is needed — the Stockham formulation in the stage engines avoids the
 reorder entirely, and this module exists as the testable reference and for

@@ -6,8 +6,8 @@ out).  This package supersedes it with real JAX sharding:
 
   * batch.py  — data parallelism: the batch axis sharded over a mesh
                 (what the reference's per-GPU independent FFTs aspired to)
-  * pencil.py — one transform sharded across chips: four-step/pencil
-                decomposition whose global transposes are ICI all_to_all
+  * pencil.py — one transform sharded across devices: four-step/pencil
+                decomposition whose global transposes are all_to_all
                 collectives under shard_map (no analog in the reference;
                 the config-5 extension)
 """

@@ -1,6 +1,6 @@
 """Batch data parallelism over a device mesh.
 
-TPU-native supersession of the reference's (dead) multi-GPU path, which looped
+Supersession of the reference's (dead) multi-GPU path, which looped
 ``cudaSetDevice`` to run independent FFTs per GPU with no communication
 (ComputeFFT.h:295-557).  Here the batch axis is sharded over a 1D mesh and the
 single-chip jitted pipeline runs unchanged — XLA partitions it; no collectives

@@ -4,7 +4,7 @@ No analog exists in the reference (its dead multi-GPU code had zero
 inter-device communication, ComputeFFT.h:295-557); this is the config-5
 extension from BASELINE.md.  The global transposes of the Bailey/pencil
 decomposition are `jax.lax.all_to_all` collectives under `shard_map`, which
-XLA maps onto ICI.
+XLA hands to NCCL (NVLink between the cards of one host).
 
 1D: distributed four-step.  x viewed (n1, n2) with the n2 axis sharded:
     local column FFTs (length n1) -> twiddle (per-shard table slice) ->
@@ -18,17 +18,17 @@ XLA maps onto ICI.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tensorfft_tpu import dft
-from tensorfft_tpu.fft import stage_scales
-from tensorfft_tpu.ops import stages_jax
-from tensorfft_tpu.plan import Precision, balanced_radices, exact_log2
+from tensorfft_tpu.fft import transform_major
+from tensorfft_tpu.plan import FFTPlan, create_plan, exact_log2
 
 __all__ = ["pencil_fft_1d", "pencil_fft_3d", "pencil_fft_3d_2d_mesh"]
 
@@ -39,9 +39,9 @@ def _pipelined(states, *stage_fns):
     Traces stage s of chunk i immediately after stage s+1 of chunk i-1
     (skewed order), so every collective stage is adjacent in program order
     to compute stages of *other* chunks that do not depend on it.  XLA's
-    latency-hiding scheduler then overlaps the async collective (ICI) with
-    that compute (SURVEY hard part 4: "overlap of ICI communication with
-    per-pencil compute is where scaling is won or lost").  Chunks are
+    latency-hiding scheduler then overlaps the async collective with that
+    compute (SURVEY hard part 4: overlap of communication with per-pencil
+    compute is where scaling is won or lost).  Chunks are
     semantically independent, so results are identical to the monolithic
     path; only the schedule changes.
     """
@@ -77,63 +77,17 @@ def _chunk_reorder_concat(chunks, p, axis):
     return x.reshape(sh[:axis] + (p * c * csz,) + sh[axis + 1:])
 
 
-def _engine(re, im, radices, scales, sign, algorithm, knobs=None):
-    """Per-shard transform-major FFT engine.
-
-    Uses the fused Pallas kernel on TPU and the staged XLA path elsewhere
-    (CPU test meshes).  Both implement identical math.  ``knobs`` carries
-    tuned fused-kernel options (grouped/state_dtype/engine/...) from
-    :func:`_local_fused_tuning`; the staged path ignores them (they do not
-    change the math).
-    """
-    if jax.default_backend() == "tpu":
-        from tensorfft_tpu.ops import fused_pallas
-
-        return fused_pallas.fused_fft(
-            re, im, radices=tuple(radices), scales=tuple(scales), sign=sign,
-            algorithm=algorithm, **(knobs or {}),
-        )
-    return stages_jax.apply_stages(re, im, radices, scales, sign,
-                                   algorithm=algorithm)
-
-
-def _local_fused_tuning(n: int, precision: str):
-    """(radices, engine knobs) for a local fused transform of length ``n``.
-
-    Consults the persistent tuner cache via create_plan(tuning="auto") so the
-    distributed paths inherit single-chip tuning wins — the reference pattern
-    where production plans always consume tuner output (Plan.h:197-255);
-    round-2 verdict item 4.  Falls back to balanced_radices and default knobs
-    when the length is untuned or the cached radices exceed the fused stage
-    engine's kloop range.
-    """
-    from tensorfft_tpu.plan import create_plan
-
-    try:
-        plan = create_plan(n, precision=precision, strategy="fused",
-                           tuning="auto")
-    except Exception:
-        return balanced_radices(n), {}
-    knobs = {}
-    if plan.grouped:
-        knobs["grouped"] = True
-    if plan.state_dtype != "float32":
-        knobs["state_dtype"] = plan.state_dtype
-    if plan.kloop_width != 128:
-        knobs["kloop_width"] = plan.kloop_width
-    if plan.complex_mult != "block":
-        knobs["complex_mult"] = plan.complex_mult
-    if plan.engine != "stacked":
-        knobs["engine"] = plan.engine
-    return plan.radices, knobs
-
+def _local_plan(n: int, precision: str, scaling: str) -> FFTPlan:
+    """Plan of one per-shard transform of length ``n``: what the
+    single-device path would take, plan-cache entries included."""
+    return create_plan(n, precision=precision, scaling=scaling, tuning="auto")
 
 
 def resolve_overlap(overlap, local_bytes, n_devices, local_fft_seconds,
                     divisor_candidates):
     """Map overlap='auto' to a model-recommended chunk count.
 
-    Consults utils.device.overlap_estimate (ICI all_to_all roofline vs the
+    Consults utils.device.overlap_estimate (link all_to_all roofline vs the
     local FFT compute it can hide behind) and clamps the recommendation to
     the largest legal divisor <= the recommendation, so the result always
     satisfies the path's chunking constraint.  Integers pass through.
@@ -163,14 +117,15 @@ def pencil_fft_1d(
 
     ``re``/``im``: (..., N) split planar.  N = n1*n2 with n2 divisible by the
     mesh size and n1 divisible by the mesh size.  Returns (..., N) in natural
-    frequency order (values exactly ordered; device placement is sharded over
-    the k1 digit of k).
+    frequency order, block-sharded over the mesh along the last axis (the
+    shard_map leaves k sharded over its minor k1 digit; one resharding moves
+    it to contiguous blocks rather than gathering it onto every device).
 
     ``overlap`` > 1 software-pipelines the global transpose: the data is cut
     into ``overlap`` independent chunks (along the batch axis when divisible,
     else along the local j2 columns) and each chunk's all_to_all is
-    interleaved with other chunks' local FFT compute, hiding ICI latency
-    behind the MXU (the comm/compute-overlap technique the single-device
+    interleaved with other chunks' local FFT compute, hiding link latency
+    behind compute (the comm/compute-overlap technique the single-device
     reference had no use for).  Results are identical for any value.
     """
     re = jnp.asarray(re)
@@ -185,11 +140,8 @@ def pencil_fft_1d(
     if n1 % p or n2 % p:
         raise ValueError(f"n1={n1}, n2={n2} must both be divisible by mesh size {p}")
     sign = dft.FORWARD if forward else dft.INVERSE
-    algorithm = Precision(precision).dot_algorithm
-    rad1, knobs1 = _local_fused_tuning(n1, precision)
-    rad2, knobs2 = _local_fused_tuning(n2, precision)
-    sc1 = stage_scales(rad1, scaling, forward)
-    sc2 = stage_scales(rad2, scaling, forward)
+    plan1 = _local_plan(n1, precision, scaling)
+    plan2 = _local_plan(n2, precision, scaling)
     n2p = n2 // p
     n1p = n1 // p
 
@@ -202,7 +154,7 @@ def pencil_fft_1d(
                     if (b % d == 0 and b >= d) or n2p % d == 0]
         overlap = resolve_overlap(
             overlap, local_bytes, p,
-            fft_roofline_seconds(n1, b * n2p, rad1, itemsize), divisors,
+            fft_roofline_seconds(n1, b * n2p, plan1.radices, itemsize), divisors,
         )
     c = max(1, int(overlap))
     chunk_batch = b % c == 0 and b >= c
@@ -233,8 +185,7 @@ def pencil_fft_1d(
             bb, _, cc = re_c.shape
             a_re = jnp.moveaxis(re_c, 1, 0).reshape(n1, bb * cc)
             a_im = jnp.moveaxis(im_c, 1, 0).reshape(n1, bb * cc)
-            a_re, a_im = _engine(a_re, a_im, rad1, sc1, sign, algorithm,
-                                 knobs1)
+            a_re, a_im = transform_major(a_re, a_im, plan1, forward)
             a_re = a_re.reshape(n1, bb, cc)
             a_im = a_im.reshape(n1, bb, cc)
             w_re = w_re_full[:, None, cols]
@@ -256,8 +207,7 @@ def pencil_fft_1d(
             bb = a_re.shape[1]
             a_re = jnp.moveaxis(a_re, 2, 0).reshape(n2, n1p * bb)
             a_im = jnp.moveaxis(a_im, 2, 0).reshape(n2, n1p * bb)
-            a_re, a_im = _engine(a_re, a_im, rad2, sc2, sign, algorithm,
-                                 knobs2)
+            a_re, a_im = transform_major(a_re, a_im, plan2, forward)
             # (k2, k1l, bb) -> (bb, k2, k1l): global (b, n2, n1) is natural k.
             a_re = a_re.reshape(n2, n1p, bb).transpose(2, 0, 1)
             a_im = a_im.reshape(n2, n1p, bb).transpose(2, 0, 1)
@@ -302,11 +252,15 @@ def pencil_fft_1d(
     )
     re3 = re.reshape(b, n1, n2)
     im3 = im.reshape(b, n1, n2)
-    o_re, o_im = jax.jit(fn)(re3, im3, jnp.asarray(pcol), jnp.asarray(qtab))
-    return (
-        o_re.reshape(*batch_shape, n),
-        o_im.reshape(*batch_shape, n),
-    )
+    out_sharding = NamedSharding(
+        mesh, P(*([None] * len(batch_shape)), axis_name))
+
+    @functools.partial(jax.jit, out_shardings=(out_sharding, out_sharding))
+    def run(re3, im3, pcol, qtab):
+        o_re, o_im = fn(re3, im3, pcol, qtab)
+        return o_re.reshape(*batch_shape, n), o_im.reshape(*batch_shape, n)
+
+    return run(re3, im3, jnp.asarray(pcol), jnp.asarray(qtab))
 
 
 def pencil_fft_3d(
@@ -326,8 +280,8 @@ def pencil_fft_3d(
     scale 1/(nx*ny*nz) under 'forward' scaling.
 
     ``overlap`` > 1 (must divide ny) pipelines the global transpose in ky
-    chunks: chunk i's all_to_all rides ICI while chunk i-1's x-axis FFTs run
-    on the MXU.  Results are identical for any value.
+    chunks: chunk i's all_to_all is on the wire while chunk i-1's x-axis
+    FFTs run.  Results are identical for any value.
     """
     re = jnp.asarray(re)
     im = jnp.asarray(im)
@@ -343,21 +297,19 @@ def pencil_fft_3d(
         divisors = [d for d in (1, 2, 4, 8) if ny % d == 0]
         overlap = resolve_overlap(
             overlap, local_bytes, p,
-            fft_roofline_seconds(nx, (nz // p) * ny, balanced_radices(nx),
+            fft_roofline_seconds(nx, (nz // p) * ny,
+                                 _local_plan(nx, precision, scaling).radices,
                                  itemsize),
             divisors,
         )
     c = max(1, int(overlap))
     if ny % c:
         raise ValueError(f"overlap={c} must divide ny={ny}")
-    sign = dft.FORWARD if forward else dft.INVERSE
-    algorithm = Precision(precision).dot_algorithm
 
     def axis_fft(a_re, a_im, length, batch):
-        radices, knobs = _local_fused_tuning(length, precision)
-        scales = stage_scales(radices, scaling, forward)
-        return _engine(a_re.reshape(length, batch), a_im.reshape(length, batch),
-                       radices, scales, sign, algorithm, knobs)
+        plan = _local_plan(length, precision, scaling)
+        return transform_major(a_re.reshape(length, batch),
+                               a_im.reshape(length, batch), plan, forward)
 
     def shard_fn(re_l, im_l):
         nxp = nx // p
@@ -429,10 +381,9 @@ def pencil_fft_3d_2d_mesh(
 ) -> Tuple[jax.Array, jax.Array]:
     """True pencil-decomposed 3D FFT over a 2D device mesh (py x pz).
 
-    The v5p-16-class decomposition (a 1D mesh can only slab): the volume is
-    split into x-pencils — local (nx, ny/py, nz/pz) — and each transpose is a
-    tiled all_to_all over ONE mesh axis, so communication stays inside mesh
-    rows/columns (ICI neighbors on a torus):
+    A 1D mesh can only slab; here the volume is split into x-pencils —
+    local (nx, ny/py, nz/pz) — and each transpose is a tiled all_to_all over
+    ONE mesh axis, so each collective spans one mesh row or column:
 
         FFT x  ->  all_to_all(py): x<->y  ->  FFT y
                ->  all_to_all(pz): y<->z  ->  FFT z
@@ -443,7 +394,7 @@ def pencil_fft_3d_2d_mesh(
     ``overlap`` > 1 (must divide nz/pz) pipelines BOTH global transposes:
     each local-z chunk flows x-FFT -> all_to_all(py) -> y-FFT ->
     all_to_all(pz) independently, so while one chunk is on the wire the
-    neighbors' FFT stages occupy the MXU (SURVEY hard part 4).  The z-axis
+    neighbors' FFT stages run (SURVEY hard part 4).  The z-axis
     FFT needs every chunk and runs once at the end.  Results identical.
     """
     re = jnp.asarray(re)
@@ -466,20 +417,18 @@ def pencil_fft_3d_2d_mesh(
         overlap = resolve_overlap(
             overlap, local_bytes, max(py, pz),
             fft_roofline_seconds(nx, (ny // py) * (nz // pz),
-                                 balanced_radices(nx), itemsize),
+                                 _local_plan(nx, precision, scaling).radices,
+                                 itemsize),
             divisors,
         )
     c = max(1, int(overlap))
     if (nz // pz) % c:
         raise ValueError(f"overlap={c} must divide the local z extent {nz // pz}")
-    sign = dft.FORWARD if forward else dft.INVERSE
-    algorithm = Precision(precision).dot_algorithm
 
     def axis_fft(a_re, a_im, length, batch):
-        radices, knobs = _local_fused_tuning(length, precision)
-        scales = stage_scales(radices, scaling, forward)
-        return _engine(a_re.reshape(length, batch), a_im.reshape(length, batch),
-                       radices, scales, sign, algorithm, knobs)
+        plan = _local_plan(length, precision, scaling)
+        return transform_major(a_re.reshape(length, batch),
+                               a_im.reshape(length, batch), plan, forward)
 
     def shard_fn(re_l, im_l):
         nyl, nzl = ny // py, nz // pz

@@ -1,21 +1,20 @@
 """FFT planning layer.
 
-TPU-native re-design of the reference planner (``/root/reference/src/base/Plan.h``):
-the reference ``Plan`` (Plan.h:18-39) validates the transform length, derives the
+Re-design of the reference planner (``/root/reference/src/base/Plan.h``): the
+reference ``Plan`` (Plan.h:18-39) validates the transform length, derives the
 radix-16 / radix-2 stage factorization (Plan.h:99-100) and computes CUDA launch
 geometry (warps per block, grid sizes, shared memory bytes, Plan.h:117-191).
 
-On TPU there is no launch geometry: a plan is a pure function of
-``(fft_length, precision policy, tuning table)`` producing
+Here launch geometry belongs to XLA: a plan is a pure function of
+``(fft_length, precision policy, strategy)`` producing
 
-  * the radix factorization (combine order) used by every execution path,
-  * an execution strategy (single fused Pallas kernel vs. Bailey four-step
-    composition of fused kernels vs. plain-XLA reference path),
-  * tile sizes that play the role of the reference's warp counts, and
+  * the radix factorization (combine order) of the staged path, and
+  * an execution strategy, which :func:`route` picks from the platform and
+    the length when the caller leaves it on ``auto``,
 
 and is passed as a *static* argument to ``jax.jit``.  The reference's
-file-driven plan overload (Plan.h:197-255) maps to ``tuning`` lookups from the
-JSON autotuner cache (see ``tensorfft_tpu.tuning``), and
+file-driven plan overload (Plan.h:197-255) maps to ``tuning`` lookups in the
+per-platform JSON plan cache (see ``tensorfft_tpu.tuning``), and
 ``PlanWorksOnDevice`` (Plan.h:257-296) maps to :func:`plan_works_on_device`.
 """
 from __future__ import annotations
@@ -30,51 +29,42 @@ __all__ = [
     "Strategy",
     "FFTPlan",
     "create_plan",
+    "route",
     "plan_works_on_device",
     "is_power_of_2",
     "exact_log2",
     "balanced_radices",
     "optimal_radices",
-    "default_four_step_split",
 ]
-
-# Radices the stage engine supports.  Any 2^k with k in [1, 8]; the MXU cost of a
-# stage is flat for radix <= 128 (the contraction dim is padded to the 128-wide
-# systolic array), so fewer/larger stages are always at least as fast.
-_MIN_RADIX_LOG2 = 1
-_MAX_RADIX_LOG2 = 8
-
-# Largest transform the single fused-VMEM kernel handles per block.  Measured
-# on v5e (vmem_limit_bytes raised past the 16 MiB scoped default): N=16384
-# with 128 lanes compiles and runs at 3.3 TFLOP/s — 2x the four-step at the
-# same length — while N=32768 stalls in compilation; 16384 is the default
-# ceiling (the tuner may adjust per device).
-DEFAULT_MAX_FUSED_LENGTH = 16384
 
 # Reference supports N >= 256 (Plan.h:85-96).  We accept any power of two >= 2
 # (a strict superset); conformance tests sweep the reference range.
 REFERENCE_MIN_LENGTH = 256
+
+# Keys a tuning dict (create_plan(tuning=...), the plan cache) may carry.
+TUNING_KEYS = ("radices", "strategy")
 
 
 class Precision(str, enum.Enum):
     """Numeric policy, replacing the reference's fp16-everywhere choice.
 
     The reference stores data AND accumulates matmuls in fp16 via WMMA
-    (TensorRadix16.cu:166-176).  TPU MXUs take bf16 operands and accumulate in
-    fp32 for free, so every policy here accumulates in fp32; a policy picks
+    (TensorRadix16.cu:166-176).  Every policy here accumulates in fp32; a
+    policy picks
 
-      * the HBM storage dtype between kernel-level passes, and
-      * the matmul operand decomposition ("dot algorithm"): how many bf16
-        split terms represent each fp32 operand on the MXU.  'bf16x3' is the
-        split-precision compensation technique from the project north star
-        (x = hi + lo in bf16; three partial products recover ~fp32 mantissa),
-        implemented explicitly so CPU tests reproduce TPU numerics exactly.
+      * the storage dtype between passes, and
+      * the matmul operand decomposition ("dot algorithm") of the staged
+        path: how many bf16 split terms represent each fp32 operand on the
+        tensor cores.  'bf16x3' is split-precision compensation
+        (x = hi + lo in bf16; three partial products recover ~fp32
+        mantissa), implemented explicitly so CPU tests reproduce the
+        device's numerics exactly.
     """
 
-    BFLOAT16 = "bfloat16"      # bf16 storage, 1 MXU pass  (reference parity)
+    BFLOAT16 = "bfloat16"      # bf16 storage, 1 bf16 product  (reference parity)
     FLOAT32 = "float32"        # f32 storage, bf16x3 compensated matmuls
     FLOAT32_X6 = "float32_x6"  # f32 storage, bf16x6 (near-exact f32) matmuls
-    FLOAT64 = "float64"        # exact; reference/oracle path only (CPU)
+    FLOAT64 = "float64"        # exact; oracle-grade path
 
     @property
     def storage_dtype(self):
@@ -95,7 +85,7 @@ class Precision(str, enum.Enum):
 
     @property
     def dot_algorithm(self) -> str:
-        """Operand decomposition for MXU matmuls (see ops/stages_jax.py)."""
+        """Operand decomposition for stage matmuls (see ops/dots.py)."""
         return {
             Precision.BFLOAT16: "bf16",
             Precision.FLOAT32: "bf16x3",
@@ -106,13 +96,46 @@ class Precision(str, enum.Enum):
 
 class Strategy(str, enum.Enum):
     """Execution strategy (the analog of the reference's Mode_256/Mode_4096,
-    Plan.h:14, which selects how many stages the base kernel fuses)."""
+    Plan.h:14, which selects how the transform is executed)."""
 
-    AUTO = "auto"
-    FUSED = "fused"            # one Pallas kernel, whole transform in VMEM
-    FOUR_STEP = "four_step"    # Bailey decomposition into two fused passes
+    AUTO = "auto"              # route(platform, length) decides
     STAGED = "staged"          # plain-JAX stage loop (XLA fuses what it can)
-    XLA = "xla"                # jnp.fft.fft comparison path
+    XLA = "xla"                # jnp.fft: cuFFT on the GPU
+
+
+def _parse_strategy(value) -> Strategy:
+    try:
+        return Strategy(value)
+    except ValueError:
+        names = ", ".join(repr(s.value) for s in Strategy)
+        raise ValueError(
+            f"unknown strategy {value!r}; the strategies are {names}"
+        ) from None
+
+
+def route(fft_length: int, platform: Optional[str] = None) -> Strategy:
+    """The strategy ``auto`` resolves to for ``fft_length`` on ``platform``.
+
+    The one place the library chooses an execution route.  On the GPU that
+    is cuFFT (``jnp.fft``): timed against the staged stage loop on an H100
+    (``bench.py --routes``: bf16 and float32 at N = 4096 and 16384 with
+    batch 4096, N = 2^20 with batch 64), it was faster in every cell, by
+    1.1x to 6.2x.  On the CPU it is the staged loop, so tests reproduce the
+    stage numerics of the ``bf16``/``bf16x3`` policies.  ``platform``
+    defaults to ``jax.default_backend()``; any other platform raises.
+    """
+    del fft_length  # every length takes the same route on both platforms
+    if platform is None:
+        import jax
+
+        platform = jax.default_backend()
+    if platform == "cpu":
+        return Strategy.STAGED
+    if platform == "gpu":
+        return Strategy.XLA
+    raise ValueError(
+        f"no FFT route for platform {platform!r}; supported: 'gpu', 'cpu'"
+    )
 
 
 def is_power_of_2(x: int) -> bool:
@@ -131,38 +154,37 @@ def balanced_radices(n: int) -> Tuple[int, ...]:
     """Factor n = 2^p into ceil(p/7) nearly-equal power-of-two radices <= 128.
 
     The reference factors N into one base-16 DFT + radix-16 steps + radix-2
-    leftovers (Plan.h:99-100) because its tensor-core tile is 16x16.  On the
-    MXU, balanced radices minimize stage count at flat per-stage cost.
+    leftovers (Plan.h:99-100) because its tensor-core tile is 16x16.  Fewer,
+    larger stages mean fewer passes over the data.
     """
     p = exact_log2(n)
     if p == 0:
         return ()
-    max_log = 7  # radix 128 fills the MXU contraction dim exactly
+    max_log = 7
     stages = max(1, math.ceil(p / max_log))
     base, rem = divmod(p, stages)
     logs = [base + 1] * rem + [base] * (stages - rem)
     # First stage has no twiddle; order ascending so the cheap/no-twiddle stage
-    # takes the smallest radix and later (twiddled) stages get full MXU use.
+    # takes the smallest radix.
     logs.sort()
     return tuple(1 << l for l in logs)
 
 
-# Padded-MAC cost per input element of one block-complex radix-R stage: the
-# stage matmul is [[D_re,-D_im],[D_im,D_re]] (2R x 2R) @ (2R, N*B/R), and the
-# MXU pads M and K to 128.  c(R) = max(2R,128)^2 / R, minimized at R=64.
+# MAC cost per input element of one block-complex radix-R stage: the stage
+# matmul is [[D_re,-D_im],[D_im,D_re]] (2R x 2R) @ (2R, N*B/R), with M and K
+# counted as padded to 128.  c(R) = max(2R,128)^2 / R, minimized at R=64.
 _STAGE_COST = {
     (1 << a): max(2 << a, 128) ** 2 // (1 << a) for a in range(1, 9)
 }
 
 
 def optimal_radices(n: int) -> Tuple[int, ...]:
-    """Factor n = 2^p minimizing total padded MXU MACs of block-complex stages.
+    """Factor n = 2^p minimizing the total padded MACs of block-complex stages.
 
     Dynamic program over partitions of p with per-stage cost _STAGE_COST;
-    radix 64 (block matrix 128x128 — the exact MXU tile) is the sweet spot.
-    Robust interleaved-median measurements show plausible alternatives (e.g.
-    (32,128) vs (64,64) at N=4096) within +-5% of each other, so the DP
-    default stands; per-deployment differences belong in the tuner cache.
+    radix 64 (block matrix 128x128) is the sweet spot of that model.
+    Plausible alternatives (e.g. (32,128) vs (64,64) at N=4096) are explicit
+    ``radices=`` or plan-cache choices.
     """
     p = exact_log2(n)
     if p == 0:
@@ -178,39 +200,6 @@ def optimal_radices(n: int) -> Tuple[int, ...]:
     return tuple(radices)
 
 
-def default_four_step_split(n: int, max_fused: int) -> Tuple[int, int]:
-    """Split n = n1 * n2 with both factors <= max_fused.
-
-    n1 is the column (first-pass) length, n2 the row (second-pass) length.
-    Tuned on v5e: UNBALANCED splits with large n2 win decisively for large N
-    (e.g. N=2^16: (128, 512) measures 3x the balanced (256, 256)) because a
-    big n2 gives pass 1 wide lane panels and pass 2 long rows; below 2^16 the
-    balanced split is best.  The autotuner cache refines this per length.
-    """
-    p = exact_log2(n)
-    pf = exact_log2(max_fused)
-    if p > 2 * pf:
-        raise ValueError(
-            f"fft_length {n} too large for a two-pass four-step with "
-            f"max_fused_length {max_fused}"
-        )
-    if p <= 15:
-        p1 = p // 2
-    else:
-        # n2 capped at 4096: larger row panels measured slower at 2^20
-        # ((256,4096): 1941 GFLOP/s vs (128,8192): 1857).  The max(p - pf, .)
-        # clamp keeps n1 <= max_fused when the cap would push it past the
-        # fusable range (p > 26 with the default pf = 14).
-        p2 = max(p - pf, min(pf, 12, p - 7))
-        p1 = p - p2
-    p2 = p - p1
-    if p2 > pf or p1 > pf:
-        raise ValueError(
-            f"no two-pass split of {n} fits max_fused_length {max_fused}"
-        )
-    return (1 << p1, 1 << p2)
-
-
 @dataclasses.dataclass(frozen=True)
 class FFTPlan:
     """Immutable description of how to execute one FFT configuration.
@@ -223,83 +212,9 @@ class FFTPlan:
     radices: Tuple[int, ...]
     precision: Precision = Precision.BFLOAT16
     strategy: Strategy = Strategy.AUTO
-    # Four-step decomposition (None when the fused kernel covers fft_length).
-    four_step_split: Optional[Tuple[int, int]] = None
-    # Radices of the two four-step passes (column pass over n1, row pass n2).
-    col_radices: Optional[Tuple[int, ...]] = None
-    row_radices: Optional[Tuple[int, ...]] = None
-    # Lane tile: how many transforms ride the 128-wide lane dimension per
-    # kernel block (the analog of the reference's warps-per-block tuning knob,
-    # Plan.h:117-149).
-    lane_tile: int = 128
     # Forward transform scale: 'forward' = 1/N progressively applied per stage
     # (the reference convention, TensorRadix16.cu:132-136), 'none', 'ortho'.
     scaling: str = "forward"
-    max_fused_length: int = DEFAULT_MAX_FUSED_LENGTH
-    # Pack 128/(2R) sub-transform slices per block-diagonal stage matmul
-    # (twiddle folded into the constant).  Measured +-: helps radix-8/16
-    # tail stages ~3%, hurts radix-32 -- a per-length tuner decision, off by
-    # default (see CLAUDE.md perf log).
-    grouped: bool = False
-    # HBM layout of the FUSED path: 'batch_major' reads (B, N) row blocks and
-    # transposes once in VMEM (ops/four_step_pallas.fused_fft_batch_major),
-    # killing the two XLA HBM transposes the 'transform_major' (N, B) kernel
-    # needs around it; 'auto' picks batch_major whenever the batch tiles
-    # legally (fft.py).  Tuner-overridable per length.
-    fused_layout: str = "auto"
-    # Lane width one kloop stage matmul is packed to (ops/fused_pallas
-    # stage_loop): wider matmuls feed more MXU column tiles, at the price of
-    # lane-dim concatenations.  Measured a net LOSS above N=4096 (see
-    # fused_pallas._KLOOP_WIDTH), so the default stays narrow; tuner knob.
-    kloop_width: int = 128
-    # Dtype the in-VMEM state is held in BETWEEN kernel stages.  'bfloat16'
-    # halves state traffic (matmuls still accumulate fp32) — the analog of
-    # the reference keeping fp16 in shared memory between fused stages
-    # (TensorRadix16.cu:195-213); 'float32' is exactly-one-rounding-per-stage.
-    state_dtype: str = "float32"
-    # Complex stage-matmul formulation: 'block' = one 2Rx2R block-complex
-    # matmul (the reference issues 4 WMMA mma_syncs, TensorRadix16.cu:166-176);
-    # 'mult3' = three RxR real matmuls (Gauss/Karatsuba), 25% fewer padded
-    # MACs for radix >= 128 stages (where the fused kernel is MXU-bound);
-    # stages below radix 128 keep the block form under either setting.
-    complex_mult: str = "block"
-    # In-VMEM stage engine: 'stacked' runs block-complex matmuls on a stacked
-    # (2, K, M*T) state; 'planar' keeps re/im as SEPARATE planes end-to-end —
-    # two [D_re; D_im]-merged matmuls per slice with the stage twiddle folded
-    # into per-slice constants, eliminating the entry stack, the per-slice
-    # re/im gathers, and the VPU twiddle pass (round-3 in-kernel VMEM work);
-    # 'planar_vpu' is planar with a shared DFT matrix + VPU twiddles (small
-    # tables).  'gridslice' is stacked with the LAST stage's K-way sublane
-    # interleave (measured ~615 us of the N=16384/b=4096 kernel) deferred to
-    # the output DMA: slices park contiguously in scratch and a second grid
-    # dimension stores each to its strided (R, S, B) HBM block (requires the
-    # last stage to emit whole slices — see fused_pallas.gridslice_layout).
-    # Tuner knob; fused-path kernels only.
-    engine: str = "stacked"
-    # First-stage matmul compensation for the bf16 policy: 'bf16ax2' splits
-    # the (constant) DFT matrix into hi+lo bf16 terms (2 MXU products) so
-    # the first stage — which has no twiddle error and dominates small-N
-    # deviation — runs at ~fp32 matrix accuracy while the data operand stays
-    # the exact bf16 storage.  create_plan's 'auto' enables it for
-    # fft_length <= 1024 under the bfloat16 policy (round-2 verdict item 5:
-    # the N=256 gate margin was 14%).  Non-bf16 policies ignore it.
-    first_dot: str = "default"
-    # Sublane tile of the four-step K2 (row) pass: how many n1-columns each
-    # program transposes and transforms per block (ops/four_step_pallas
-    # _row_kernel's lane width after the in-VMEM transpose).  The effective
-    # tile is min(k1_tile, n1).  256 halves the K2 grid and doubles the lane
-    # panels feeding the stage matmuls — viable since the blocked-P streaming
-    # fix freed K-pass VMEM (round-2 verdict item 2's untried lever); the
-    # reference analog is warps-per-block on the radix kernels
-    # (Plan.h:117-149).  Four-step plans only; tuner knob.
-    k1_tile: int = 128
-    # Cast the fused kernel's LAST stage outputs to the storage dtype BEFORE
-    # the K-way interleave stack (bit-identical — astype commutes with the
-    # permutation) so the Mosaic sublane shuffle moves output-width data:
-    # with fp32 state and bf16 storage that halves the interleave's bytes,
-    # the interleave half of the bf16-state win without its per-stage
-    # rounding.  Stacked/pretwiddle fused engines only; tuner knob.
-    interleave_downcast: bool = False
 
     def __post_init__(self):
         if not is_power_of_2(self.fft_length):
@@ -315,50 +230,8 @@ class FFTPlan:
                 raise ValueError(f"radix {r} is not a power of 2")
         if self.scaling not in ("forward", "none", "ortho"):
             raise ValueError(f"bad scaling {self.scaling!r}")
-        if self.fused_layout not in ("auto", "batch_major", "transform_major"):
-            raise ValueError(f"bad fused_layout {self.fused_layout!r}")
-        if self.state_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"bad state_dtype {self.state_dtype!r}")
-        if self.complex_mult not in ("block", "mult3"):
-            raise ValueError(f"bad complex_mult {self.complex_mult!r}")
-        if self.engine not in ("stacked", "planar", "planar_vpu",
-                               "pretwiddle", "gridslice", "gridslice8",
-                               "gridslice16"):
-            raise ValueError(f"bad engine {self.engine!r}")
-        if self.first_dot not in ("default", "bf16ax2"):
-            raise ValueError(f"bad first_dot {self.first_dot!r}")
-        if not isinstance(self.interleave_downcast, bool):
-            raise ValueError(
-                f"interleave_downcast must be a bool, "
-                f"got {self.interleave_downcast!r}"
-            )
-        if self.k1_tile < 128 or not is_power_of_2(self.k1_tile):
-            raise ValueError(
-                f"k1_tile must be a power of 2 >= 128, got {self.k1_tile}"
-            )
-        if self.four_step_split is not None:
-            n1, n2 = self.four_step_split
-            if n1 * n2 != self.fft_length:
-                raise ValueError("four_step_split does not factor fft_length")
-            if self.col_radices is not None and math.prod(self.col_radices) != n1:
-                raise ValueError(
-                    f"col_radices {self.col_radices} do not multiply to n1={n1}"
-                )
-            if self.row_radices is not None and math.prod(self.row_radices) != n2:
-                raise ValueError(
-                    f"row_radices {self.row_radices} do not multiply to n2={n2}"
-                )
-        if self.resolve_strategy() is Strategy.FOUR_STEP:
-            # A directly-constructed four-step plan must carry a complete
-            # decomposition; _fft_split_core unpacks these unconditionally.
-            if self.four_step_split is None:
-                raise ValueError(
-                    "strategy 'four_step' requires four_step_split=(n1, n2)"
-                )
-            if self.col_radices is None or self.row_radices is None:
-                raise ValueError(
-                    "strategy 'four_step' requires col_radices and row_radices"
-                )
+        object.__setattr__(self, "precision", Precision(self.precision))
+        object.__setattr__(self, "strategy", _parse_strategy(self.strategy))
 
     # -- reference-parity accessors -------------------------------------------------
     @property
@@ -386,9 +259,7 @@ class FFTPlan:
     def resolve_strategy(self) -> Strategy:
         if self.strategy is not Strategy.AUTO:
             return self.strategy
-        if self.fft_length <= self.max_fused_length:
-            return Strategy.FUSED
-        return Strategy.FOUR_STEP
+        return route(self.fft_length)
 
 
 def create_plan(
@@ -396,11 +267,8 @@ def create_plan(
     precision: str | Precision = Precision.BFLOAT16,
     strategy: str | Strategy = Strategy.AUTO,
     radices: Optional[Sequence[int]] = None,
-    lane_tile: Optional[int] = None,
     scaling: str = "forward",
-    max_fused_length: int = DEFAULT_MAX_FUSED_LENGTH,
     tuning: Optional[dict] = None,
-    fused_layout: Optional[str] = None,
     batch_hint: Optional[int] = None,
 ) -> FFTPlan:
     """Create an :class:`FFTPlan`.
@@ -409,18 +277,18 @@ def create_plan(
     (Plan.h:77-194).  The reference rejects lengths below 256 (Plan.h:85-96);
     we accept any power of two >= 2, a strict superset of the contract.
 
-    ``tuning`` is a dict as produced by :mod:`tensorfft_tpu.tuning` (the analog
-    of the reference's TunerResults.dat-driven overload, Plan.h:197-255); any
-    key present overrides the computed default.  Pass ``tuning="auto"`` to
-    look the current (fft_length, precision, platform) up in the persistent
-    tuner cache (no-op if untuned).
+    ``tuning`` is a dict with keys from ``TUNING_KEYS`` (the analog of the
+    reference's TunerResults.dat-driven overload, Plan.h:197-255); any key
+    present overrides the computed default.  Pass ``tuning="auto"`` to look
+    the current (fft_length, precision, platform) up in the persistent plan
+    cache (no-op if the cache holds nothing for it).
     """
     if not is_power_of_2(fft_length) or fft_length < 2:
         raise ValueError(
             f"fft_length must be a power of 2 (>= 2), got {fft_length}"
         )
     precision = Precision(precision)
-    strategy = Strategy(strategy)
+    strategy = _parse_strategy(strategy)
 
     if tuning == "auto":
         import jax
@@ -435,87 +303,24 @@ def create_plan(
         )
 
     tuning = dict(tuning or {})
-    grouped = False
+    unknown = sorted(set(tuning) - set(TUNING_KEYS))
+    if unknown:
+        raise ValueError(
+            f"unknown tuning keys {unknown}; a plan takes {list(TUNING_KEYS)}"
+        )
     if "radices" in tuning and radices is None:
         radices = tuple(tuning["radices"])
-    if "lane_tile" in tuning and lane_tile is None:
-        lane_tile = int(tuning["lane_tile"])
-    if "grouped" in tuning:
-        grouped = bool(tuning["grouped"])
     if "strategy" in tuning and strategy is Strategy.AUTO:
-        strategy = Strategy(tuning["strategy"])
-    if "max_fused_length" in tuning:
-        max_fused_length = int(tuning["max_fused_length"])
-    if "fused_layout" in tuning and fused_layout is None:
-        fused_layout = str(tuning["fused_layout"])
-    state_dtype = str(tuning.get("state_dtype", "float32"))
-    kloop_width = int(tuning.get("kloop_width", 128))
-    complex_mult = str(tuning.get("complex_mult", "block"))
-    engine = str(tuning.get("engine", "stacked"))
-    first_dot = str(tuning.get("first_dot", "auto"))
-    k1_tile = int(tuning.get("k1_tile", 128))
-    interleave_downcast = bool(tuning.get("interleave_downcast", False))
-    if first_dot == "auto":
-        # Small-N bf16 transforms get the compensated first stage by
-        # default: measured ~40%+ extra gate headroom at N=256 for a
-        # first-stage-only MAC increase (see results/RESULTS.md).
-        first_dot = (
-            "bf16ax2"
-            if precision is Precision.BFLOAT16 and fft_length <= 1024
-            else "default"
-        )
-
-    four_step_split = None
-    col_radices = None
-    row_radices = None
-    resolved = strategy
-    if resolved is Strategy.AUTO:
-        resolved = (
-            Strategy.FUSED
-            if fft_length <= max_fused_length
-            else Strategy.FOUR_STEP
-        )
-    if resolved is Strategy.FOUR_STEP:
-        split = tuning.get("four_step_split")
-        if split is None:
-            split = default_four_step_split(fft_length, max_fused_length)
-        four_step_split = (int(split[0]), int(split[1]))
-        col_radices = optimal_radices(four_step_split[0])
-        row_radices = optimal_radices(four_step_split[1])
-        # Per-pass radix orders are tunable: descending orders put the small
-        # radices in later (twiddled) stages where the grouped block-diagonal
-        # packing applies (same finding as the fused small-N retune).
-        if tuning.get("col_radices"):
-            col_radices = tuple(int(r) for r in tuning["col_radices"])
-        if tuning.get("row_radices"):
-            row_radices = tuple(int(r) for r in tuning["row_radices"])
-
+        strategy = _parse_strategy(tuning["strategy"])
     if radices is None:
         radices = optimal_radices(fft_length)
-    if lane_tile is None:
-        # Pallas TPU requires the last block dim to be a multiple of 128.
-        lane_tile = 128
 
     return FFTPlan(
         fft_length=int(fft_length),
         radices=tuple(int(r) for r in radices),
         precision=precision,
         strategy=strategy,
-        four_step_split=four_step_split,
-        col_radices=col_radices,
-        row_radices=row_radices,
-        lane_tile=int(lane_tile),
         scaling=scaling,
-        max_fused_length=int(max_fused_length),
-        grouped=grouped,
-        fused_layout=fused_layout if fused_layout is not None else "auto",
-        state_dtype=state_dtype,
-        kloop_width=kloop_width,
-        complex_mult=complex_mult,
-        engine=engine,
-        first_dot=first_dot,
-        k1_tile=k1_tile,
-        interleave_downcast=interleave_downcast,
     )
 
 
@@ -523,119 +328,25 @@ def plan_works_on_device(plan: FFTPlan, device=None) -> Tuple[bool, str]:
     """Check that ``plan`` can run on ``device``.
 
     Counterpart of the reference ``PlanWorksOnDevice`` (Plan.h:257-296), which
-    checks compute capability >= 8.0, warp size, and opt-in shared memory.  On
-    TPU the analogous constraints are: a matrix unit exists (TPU platform; the
-    CPU interpreter path always works), and the fused working set fits VMEM.
-    Returns (ok, reason).
+    checks compute capability >= 8.0, warp size and opt-in shared memory.
+    Here XLA owns launch geometry, so what remains is: a route exists for the
+    device's platform, and a GPU has tensor cores of compute capability
+    >= 8.0 (Plan.h:262-265).  Returns (ok, reason).
     """
     import jax
-
-    from tensorfft_tpu.utils.device import device_spec
 
     if device is None:
         device = jax.devices()[0]
     platform = getattr(device, "platform", "cpu")
-
-    # Fused working set: (n, lane_tile) RE+IM in the in-VMEM state dtype,
-    # double-buffered.  bf16 state halves it — what makes single-pass fused
-    # plans feasible at 32768/65536 (tuner's mid-N fused challengers).
-    n_fused = plan.fft_length
-    if plan.four_step_split is not None:
-        n_fused = max(plan.four_step_split)
-    n_fused = min(n_fused, plan.max_fused_length)
-    state_bytes = 2 if plan.state_dtype == "bfloat16" else 4
-    working_set = n_fused * plan.lane_tile * state_bytes * 2 * 2
-
-    def _gridslice_applies(radices, need_wide_last: bool) -> bool:
-        # Mirrors the kernels' fallback gate: a gridslice engine only
-        # allocates scratch when the last stage can emit whole slices
-        # (fused_pallas.gridslice_layout); the four-step passes additionally
-        # need a sublane-multiple last radix for their scratch tiling.
-        if not plan.engine.startswith("gridslice"):
-            return False
-        radices = tuple(radices)
-        if need_wide_last and radices[-1] < 8:
-            return False
-        from tensorfft_tpu.ops.fused_pallas import gridslice_layout
-
-        return gridslice_layout(radices, plan.grouped) is not None
-
-    if plan.four_step_split is None:
-        gs_scratch = _gridslice_applies(plan.radices, need_wide_last=False)
-    else:
-        gs_scratch = _gridslice_applies(plan.col_radices, need_wide_last=True)
-    if gs_scratch:
-        # Slice-parking scratch planes (storage dtype) of the deferred-
-        # interleave engines (fused kernel and four-step column pass).
-        working_set += (n_fused * plan.lane_tile * 2
-                        * (2 if plan.precision is Precision.BFLOAT16 else 4))
-    vmem_budget = device_spec(device).vmem_bytes - 2 * 1024 * 1024
-    if working_set > vmem_budget:
-        return (
-            False,
-            f"fused working set {working_set} B exceeds VMEM budget "
-            f"{vmem_budget} B on {platform}; lower lane_tile or "
-            f"max_fused_length",
-        )
-    # Stage tables (twiddle-fold constants) are VMEM-resident alongside the
-    # data planes.  The grouped (64,256) stage-2 fold table is 33.5 MiB in
-    # bf16 and 67 MiB in fp32 — the very thing that killed the float32 twin
-    # in the Mosaic allocator (round-4 verdict weak #2) — so the TOTAL
-    # footprint is budgeted here rather than relying on a compile failure.
-    resolved = plan.resolve_strategy()
-    from tensorfft_tpu.utils.device import TABLE_HEADROOM_BYTES
-
-    total_budget = device_spec(device).vmem_bytes + TABLE_HEADROOM_BYTES
-    if resolved in (Strategy.FUSED, Strategy.FOUR_STEP):
-        from tensorfft_tpu.ops.fused_pallas import stage_table_bytes
-
-        algorithm = plan.precision.dot_algorithm
-        main_radices = (plan.radices if plan.four_step_split is None
-                        else plan.col_radices)
-        tables = stage_table_bytes(
-            main_radices, plan.grouped, algorithm, engine=plan.engine,
-            complex_mult=plan.complex_mult, first_dot=plan.first_dot)
-        if working_set + tables > total_budget:
-            return (
-                False,
-                f"working set {working_set} B + stage tables {tables} B "
-                f"exceed the total footprint budget {total_budget} B on "
-                f"{platform}; disable grouped folds or lower the table "
-                f"dtype/lane_tile",
-            )
-    if plan.four_step_split is not None:
-        # K2 (row) pass block at bt2 = 1: (k1, n2) in + (n2, k1) out, re+im
-        # in the storage dtype, double-buffered, plus the re/im state planes.
-        n1, n2 = plan.four_step_split
-        k1 = min(plan.k1_tile, n1)
-        storage_bytes = 2 if plan.precision is Precision.BFLOAT16 else 4
-        # in+out re+im double-buffered, plus the slice-parking scratch planes
-        # of the deferred-interleave row pass (only when the row radices can
-        # actually emit whole slices — the kernel falls back otherwise).
-        io_planes = 2 * 2 * 2 + (
-            2 if _gridslice_applies(plan.row_radices, need_wide_last=True)
-            else 0)
-        k2_set = k1 * n2 * (io_planes * storage_bytes + 2 * state_bytes)
-        if k2_set > vmem_budget:
-            return (
-                False,
-                f"four-step K2 block {k2_set} B exceeds VMEM budget "
-                f"{vmem_budget} B on {platform}; lower k1_tile or rebalance "
-                f"the split",
-            )
-        from tensorfft_tpu.ops.fused_pallas import stage_table_bytes
-
-        row_tables = stage_table_bytes(
-            plan.row_radices, plan.grouped, plan.precision.dot_algorithm,
-            engine=plan.engine, complex_mult=plan.complex_mult,
-            first_dot=plan.first_dot)
-        if k2_set + row_tables > total_budget:
-            return (
-                False,
-                f"four-step K2 block {k2_set} B + stage tables "
-                f"{row_tables} B exceed the total footprint budget "
-                f"{total_budget} B on {platform}",
-            )
-    if plan.precision is Precision.FLOAT64 and platform == "tpu":
-        return (False, "float64 plans are CPU/oracle-only")
+    try:
+        if plan.strategy is Strategy.AUTO:
+            route(plan.fft_length, platform)
+    except ValueError as e:
+        return (False, str(e))
+    if platform == "gpu":
+        cc = getattr(device, "compute_capability", None)
+        if cc is None or float(cc) < 8.0:
+            return (False, f"compute capability {cc} < 8.0 on {device}")
+    elif platform != "cpu":
+        return (False, f"no FFT route for platform {platform!r}")
     return (True, "ok")

@@ -7,7 +7,7 @@ production FFT framework needs the standard vocabulary around the transform.
 Everything here is host-math-free-of-transcendentals-on-device: grids and
 windows are built in fp64 NumPy and handed to the device as constants, the
 shifts are pure `jnp.roll`s (XLA lowers them to two slices + a concat — no
-gather, TPU-safe).
+gather).
 """
 from __future__ import annotations
 

@@ -136,49 +136,6 @@ def write_bench_table(path, rows: Sequence[dict]):
     Path(str(path) + ".json").write_text(json.dumps(list(rows), indent=1))
 
 
-def write_tuner_data(n, batch, precision, audit, winner_tuning, dump_dir,
-                     tag=""):
-    """Full per-config tuner measurement table (TunerData_<N>.dat analog,
-    FileWriter.h:227-248).
-
-    ``audit`` rows are (RunConfig, time_ns, sigma_ns, phase) in measurement
-    order — the whole sweep plus every head-to-head arm and the incumbent
-    guard — so the winning cache entry is auditable after the fact (round-2
-    verdict item 6).  Writes ``tuner_data_<n><tag>.dat`` (+ JSON sidecar) in
-    ``dump_dir``; returns the path.  ``tag`` keeps challenge-only retune
-    dumps (a handful of twin rows) from clobbering a full structural-sweep
-    table at the same length.
-    """
-    dump_dir = Path(dump_dir)
-    dump_dir.mkdir(parents=True, exist_ok=True)
-    path = dump_dir / f"tuner_data_{n}{tag}.dat"
-    rows = []
-    for cfg, t_ns, s_ns, phase in audit:
-        tuning = cfg.as_tuning() if hasattr(cfg, "as_tuning") else dict(cfg)
-        rows.append({
-            "config": {k: (list(v) if isinstance(v, tuple) else v)
-                       for k, v in tuning.items()},
-            "time_us": None if not np.isfinite(t_ns) else round(t_ns / 1e3, 2),
-            "sigma_us": round(s_ns / 1e3, 2),
-            "phase": phase,
-        })
-    meta = {
-        "fft_length": n, "batch": batch, "precision": precision,
-        "winner": {k: (list(v) if isinstance(v, tuple) else v)
-                   for k, v in winner_tuning.items()},
-        "rows": rows,
-    }
-    with open(path, "w") as f:
-        f.write("# phase time_us sigma_us config\n")
-        for r in rows:
-            t = "inf" if r["time_us"] is None else f"{r['time_us']:.2f}"
-            f.write(f"{r['phase']} {t} {r['sigma_us']:.2f} "
-                    f"{json.dumps(r['config'], sort_keys=True)}\n")
-        f.write(f"# winner {json.dumps(meta['winner'], sort_keys=True)}\n")
-    Path(str(path) + ".json").write_text(json.dumps(meta, indent=1))
-    return path
-
-
 def write_log(path, messages: Sequence[str]):
     """Append log lines (FileWriter.h:192-203 analog)."""
     with open(path, "a") as f:

@@ -1,16 +1,9 @@
-"""Autotuner: parameter search + persistent JSON cache.
+"""Per-platform plan cache.
 
-Mirror of the reference's tuner stack (BenchUtil.h search spaces + Bench.h
-measurement loops + TunerResults.dat persistence, consumed back by
-CreatePlan's file overload, Plan.h:197-255).  Here the tunables are radix
-factorizations, lane tiles, and four-step splits instead of warp counts; the
-cache is JSON keyed by (fft_length, precision, platform).
+The analog of the reference's TunerResults.dat persistence, consumed back by
+CreatePlan's file overload (Plan.h:197-255): a JSON file keyed by
+(fft_length, precision, platform[, batch]) whose entries are ``tuning`` dicts
+for :func:`tensorfft_tpu.plan.create_plan`.
 """
 
 from tensorfft_tpu.tuning.cache import TunerCache, default_cache_path
-from tensorfft_tpu.tuning.tuner import (
-    get_run_configs,
-    get_search_space,
-    run_bench_over_search_space,
-    tune,
-)

@@ -1,4 +1,4 @@
-"""Persistent autotuning cache.
+"""Persistent per-platform plan cache.
 
 The analog of the reference's ``TunerResults.dat`` (written
 FileWriter.h:250-269, parsed back by the file-driven CreatePlan overload,
@@ -91,7 +91,7 @@ class TunerCache:
         """Tuning dict for create_plan(tuning=...), or None if not tuned.
 
         With ``batch``, an entry tuned at that exact batch takes priority
-        (lane-panel/grid tradeoffs shift with batch — round-1 verdict #8);
+        (the best plan can shift with batch);
         the batch-blind entry is the fallback either way.
         """
         entry = None

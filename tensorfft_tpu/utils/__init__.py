@@ -1,7 +1,8 @@
-"""Device capability queries and roofline models."""
+"""Device peaks, roofline and overlap models, compile-cache setup."""
 
+from tensorfft_tpu.utils.compile_cache import enable_compile_cache
 from tensorfft_tpu.utils.device import (
-    KERNEL_VMEM_LIMIT_BYTES,
+    PEAKS,
     DeviceSpec,
     OverlapEstimate,
     all_to_all_seconds,

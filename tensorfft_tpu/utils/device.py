@@ -1,11 +1,11 @@
-"""Device capability queries.
+"""Device peaks and the models built on them.
 
 Counterpart of the reference's device interrogation
 (PlanWorksOnDevice/GetMaxNoOptInSharedMem, Plan.h:257-303, built on
-cudaGetDeviceProperties): peak flops, HBM bandwidth, and VMEM budget per
-platform, used by plan validation, the benchmark roofline, and the tuner.
-Numbers are per-chip datasheet values; measured achievable fractions on this
-project's rig are ~88% (MXU) / ~92% (HBM) — see testing/timer.chain_measure.
+cudaGetDeviceProperties): one table of published peaks keyed by JAX's
+``device_kind``, used by the benchmark roofline and by the communication /
+compute overlap model of the distributed paths.  A device missing from the
+table is an error, never a default.
 """
 from __future__ import annotations
 
@@ -14,91 +14,66 @@ import dataclasses
 __all__ = [
     "DeviceSpec",
     "OverlapEstimate",
+    "PEAKS",
+    "VIRTUAL_CPU_MESH",
     "all_to_all_seconds",
     "device_spec",
     "fft_roofline_seconds",
     "overlap_estimate",
-    "KERNEL_VMEM_LIMIT_BYTES",
-    "TABLE_HEADROOM_BYTES",
 ]
-
-# Scoped-VMEM limit every Pallas kernel in this library passes to
-# pltpu.CompilerParams(vmem_limit_bytes=...), raising the 16 MiB compiler
-# default.  plan_works_on_device budgets against this same constant (minus
-# a table/double-buffer reserve) so planning and kernels can't drift apart.
-# 120 MiB (of the v5e's 128 MiB physical VMEM): measured round-4, the
-# N=32768 single-pass fused kernel (16.8 MiB bf16 data working set) is
-# REJECTED by the Mosaic allocator at a 100 MiB cap but compiles and runs
-# at 120 MiB (548 us, beats the four-step incumbent) — tables, scratch and
-# double-buffering inflate the true footprint ~3x over the data planes.
-KERNEL_VMEM_LIMIT_BYTES = 120 * 1024 * 1024
-
-# Headroom the TOTAL per-kernel footprint (data working set PLUS resident
-# stage tables, ops/fused_pallas.stage_table_bytes) gets over the data-plane
-# budget ``vmem_bytes``: total <= vmem_bytes + headroom.  Calibrated on v5e
-# (64 MiB data budget) at the 120 MiB scoped cap, round-4 measurements: the
-# committed N=16384 (64,256)+grouped headline kernel — 33.5 MiB f32 state
-# planes + 33.5 MiB bf16 fold tables = 67 MiB — compiles and runs; its
-# float32-policy twin (33.5 MiB state + 67 MiB f32 fold tables = 100.5 MiB)
-# is rejected by the Mosaic allocator.  64 + 16 = 80 MiB sits between the
-# measured pass and fail points.
-TABLE_HEADROOM_BYTES = 16 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
     platform: str
-    kind: str
-    bf16_flops: float          # peak bf16 FLOP/s (MXU)
-    hbm_bandwidth: float       # bytes/s
-    vmem_bytes: int            # scoped VMEM per core
-    mxu_size: int = 128
-    # Aggregate ICI egress per chip (all links, one direction), bytes/s.
-    # Datasheet-derived: v5e 4 links x 45 GB/s (2D torus), v5p 6 x 90 (3D),
-    # v4 6 x 45.  DCN (cross-slice) is ~25 GB/s per host NIC.
-    ici_bandwidth: float = 180e9
-    dcn_bandwidth: float = 25e9
+    kind: str                  # jax Device.device_kind
+    bf16_flops: float          # dense bf16 tensor-core peak, FLOP/s
+    hbm_bandwidth: float       # device memory, bytes/s
+    link_bandwidth: float      # to the other devices, one direction, bytes/s
+    source: str
 
 
-# vmem_bytes is the usable per-kernel budget: the scoped limit the kernels
-# actually request (KERNEL_VMEM_LIMIT_BYTES, not the 16 MiB compiler default)
-# minus a reserve for stage tables and Mosaic double-buffering.  The reserve
-# is calibrated to the round-4 mid-N measurements at the 120 MiB cap: the
-# 33.5 MiB N=32768 fused working set compiles and runs; the 67 MiB N=65536
-# one is rejected by the allocator — so the budget sits at 64 MiB, between
-# them (and identical to the budget every committed tuner winner passed).
-_VMEM_BUDGET = KERNEL_VMEM_LIMIT_BYTES - 56 * 2**20
-_KNOWN = {
-    # kind-substring -> spec template
-    "v5 lite": DeviceSpec("tpu", "v5e", 197e12, 819e9, _VMEM_BUDGET,
-                          ici_bandwidth=180e9),
-    "v5e": DeviceSpec("tpu", "v5e", 197e12, 819e9, _VMEM_BUDGET,
-                      ici_bandwidth=180e9),
-    "v5p": DeviceSpec("tpu", "v5p", 459e12, 2765e9, _VMEM_BUDGET,
-                      ici_bandwidth=540e9),
-    "v4": DeviceSpec("tpu", "v4", 275e12, 1228e9, _VMEM_BUDGET,
-                     ici_bandwidth=270e9),
-    "v6": DeviceSpec("tpu", "v6e", 918e12, 1640e9, _VMEM_BUDGET,
-                     ici_bandwidth=180e9),
-}
+H100_SXM = DeviceSpec(
+    "gpu", "NVIDIA H100 80GB HBM3",
+    bf16_flops=989e12, hbm_bandwidth=3.35e12, link_bandwidth=450e9,
+    source="NVIDIA H100 data sheet, SXM5, dense (no sparsity), 700 W power "
+           "limit; NVLink 900 GB/s total = 450 GB/s each way",
+)
 
-_CPU = DeviceSpec("cpu", "host", 1e12, 100e9, 128 * 2**20,
-                  ici_bandwidth=10e9)
+# Published peaks, keyed by device_kind.
+PEAKS = {spec.kind: spec for spec in (H100_SXM,)}
+
+# Input of the overlap model when the distributed paths run on virtual CPU
+# test meshes.  Not a peak of any device: it only keeps the 'auto' overlap
+# choice computable where there is no card.
+VIRTUAL_CPU_MESH = DeviceSpec(
+    "cpu", "virtual CPU test mesh",
+    bf16_flops=1e12, hbm_bandwidth=100e9, link_bandwidth=10e9,
+    source="placeholder for virtual CPU test meshes; not a measurement",
+)
 
 
 def device_spec(device=None) -> DeviceSpec:
+    """Peaks of ``device`` (default: the first JAX device).
+
+    GPUs are looked up by ``device_kind`` in :data:`PEAKS`; an unknown kind
+    raises.  A CPU device gets :data:`VIRTUAL_CPU_MESH`.
+    """
     import jax
 
     if device is None:
         device = jax.devices()[0]
     platform = getattr(device, "platform", "cpu")
-    if platform != "tpu":
-        return dataclasses.replace(_CPU, platform=platform)
-    kind = getattr(device, "device_kind", "").lower()
-    for key, spec in _KNOWN.items():
-        if key in kind:
-            return spec
-    return _KNOWN["v5e"]  # conservative default
+    if platform == "cpu":
+        return VIRTUAL_CPU_MESH
+    kind = getattr(device, "device_kind", "")
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r} "
+            f"(platform {platform!r}); known kinds: {sorted(PEAKS)}"
+        ) from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,19 +95,19 @@ def all_to_all_seconds(
     local_bytes: int, n_devices: int, spec: DeviceSpec | None = None,
     efficiency: float = 0.8,
 ) -> float:
-    """ICI roofline for one all_to_all over ``n_devices`` chips.
+    """Link roofline for one all_to_all over ``n_devices`` devices.
 
-    Each chip sends (P-1)/P of its local shard out over its aggregate ICI
-    egress; ``efficiency`` derates for link-level protocol overhead and the
-    torus routing factor (ring/torus all_to_all achieves ~80% of aggregate
-    egress for the mesh sizes of interest).
+    Each device sends (P-1)/P of its local shard to the others over its
+    one-direction link bandwidth (NVLink reaches every card of a host at the
+    same rate); ``efficiency`` derates for protocol overhead (assumed, not
+    measured).
     """
     if spec is None:
         spec = device_spec()
     if n_devices <= 1:
         return 0.0
     out_bytes = local_bytes * (n_devices - 1) / n_devices
-    return out_bytes / (spec.ici_bandwidth * efficiency)
+    return out_bytes / (spec.link_bandwidth * efficiency)
 
 
 def overlap_estimate(
@@ -148,21 +123,11 @@ def overlap_estimate(
     Models the parallel.pencil ``overlap=`` schedule: the shard is cut into
     ``c`` chunks; chunk i's all_to_all runs while chunk i-1 computes, so
 
-        t(c) = (t_comm + t_compute) / c  +  (c-1)/c * max(t_comm, t_compute)
-             ~ max + min/c   (for c chunks, perfect skew)
+        t(c) ~ max(t_comm, t_compute) + min(t_comm, t_compute) / c
 
-    minus nothing — each chunk also pays a per-collective latency floor
-    (~5 us on ICI), which caps useful chunk counts.  Returns the best c in
-    1..max_chunks (powers of two) under this model.
-
-    BASELINE config 5 prediction (512^3 complex-f32 pencil 3D on v5p-16,
-    documented per round-1 verdict #10): local shard 512^3/16 * 8 B = 67 MB,
-    per-transpose comm ~ 145 us (540 GB/s * 0.8, 15/16 egress fraction),
-    per-pencil compute ~ 130 us (2.7e9 FLOP per chip-pass at derated MXU
-    throughput) -> comm and compute are nearly balanced; the model
-    recommends overlap=4 and predicts ~1.45x per transpose phase (the
-    2-stage fill bound hi + lo/c plus 5 us/chunk collective latency), i.e.
-    ~1.35x end to end across the two transposes of the 2D-mesh pencil path.
+    plus a per-collective latency floor (5 us assumed), which caps useful
+    chunk counts.  Returns the best c in 1..max_chunks (powers of two) under
+    this model.
     """
     if spec is None:
         spec = device_spec()
@@ -198,18 +163,14 @@ def fft_roofline_seconds(
     spec: DeviceSpec | None = None,
     passes: int = 1,
 ) -> float:
-    """Speed-of-light wall time for a batched FFT on one chip.
+    """Speed-of-light wall time for a batched FFT on one device.
 
-    max(HBM bound, MXU bound): HBM = read+write both planes per pass; MXU =
-    padded block-complex MACs (M and K of the 2R x 2R stage matmul pad to the
-    MXU tile).
+    max(memory bound, tensor bound): memory = read + write both planes once
+    per pass; tensor = the staged path's stage products, 8*R real flops per
+    complex point for each radix-R stage, at the bf16 peak.
     """
     if spec is None:
         spec = device_spec()
-    hbm_bytes = passes * 2 * 2 * n * batch * itemsize
-    hbm_s = hbm_bytes / spec.hbm_bandwidth
-    macs = sum(
-        max(2 * r, spec.mxu_size) ** 2 * (n // r) * batch for r in radices
-    )
-    mxu_s = macs / (spec.bf16_flops / 2)
-    return max(hbm_s, mxu_s)
+    mem_s = passes * 2 * 2 * n * batch * itemsize / spec.hbm_bandwidth
+    flops = sum(8 * r * n * batch for r in radices)
+    return max(mem_s, flops / spec.bf16_flops)

@@ -3,8 +3,8 @@
 Default CI runs a reduced sweep (every power of two 256..2^16, 3 seeds) at
 the exact reference thresholds on the half-precision policy; pass
 ``--full-conformance`` for the complete UnitTest.cu sweep (256..2^20, 10
-seeds).  TPU numerics are reproduced exactly on CPU by the explicit bf16
-operand decompositions (ops/dots.py).
+seeds).  The device's stage numerics are reproduced exactly on the CPU by
+the explicit bf16 operand decompositions (ops/dots.py).
 """
 import pytest
 

@@ -1,4 +1,4 @@
-"""Fused 2D path (fft2_fused) and N-D peel."""
+"""2D / N-D transforms by row-column decomposition over the 1D routes."""
 import numpy as np
 import pytest
 

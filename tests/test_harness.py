@@ -114,3 +114,47 @@ def test_batch_file_roundtrip_and_many_vs_one(tmp_path):
     write_results_to_file(short, re[0, :32], im[0, :32])
     with pytest.raises(ValueError):
         compare_result_files(paths[0], short)
+
+
+# -- matrix-product precision audit (testing.precision) ------------------------
+
+def test_precision_audit_flags_default_f32_dot():
+    import jax.numpy as jnp
+
+    from tensorfft_tpu.testing.precision import default_precision_f32_dots
+
+    a = jnp.ones((8, 8), jnp.float32)
+    assert len(default_precision_f32_dots(lambda x: x @ x, a)) == 1
+    assert not default_precision_f32_dots(
+        lambda x: jnp.dot(x, x, precision="highest"), a)
+    bf = lambda x: jnp.dot(x.astype(jnp.bfloat16), x.astype(jnp.bfloat16))
+    assert not default_precision_f32_dots(bf, a)
+
+
+def test_precision_audit_sees_inside_jit():
+    import jax
+    import jax.numpy as jnp
+
+    from tensorfft_tpu.testing.precision import default_precision_f32_dots
+
+    a = jnp.ones((8, 8), jnp.float32)
+    inner = jax.jit(lambda x: x @ x)
+    assert len(default_precision_f32_dots(lambda x: inner(x) + 1, a)) == 1
+
+
+import pytest  # noqa: E402
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32", "float32_x6",
+                                       "float64"])
+def test_staged_stage_products_never_tf32(precision):
+    # Every stage product takes bf16 operands or HIGHEST precision.
+    import jax.numpy as jnp
+
+    import tensorfft_tpu as tfft
+    from tensorfft_tpu.testing.precision import default_precision_f32_dots
+
+    plan = tfft.create_plan(1024, precision=precision, strategy="staged")
+    x = jnp.ones((4, 1024), plan.precision.storage_dtype)
+    step = lambda a, b: tfft.fft_split(a, b, plan)
+    assert not default_precision_f32_dots(step, x, x)

@@ -175,7 +175,7 @@ def test_pencil_1d_overlap_rejects_indivisible(mesh8):
 
 
 def test_overlap_auto_pencil_paths(mesh8):
-    # overlap="auto" consults the ICI/compute model (utils.device
+    # overlap="auto" consults the link/compute model (utils.device
     # .overlap_estimate) and must produce identical results to overlap=1.
     n = 1 << 12
     rng = np.random.default_rng(7)
@@ -215,23 +215,23 @@ def test_resolve_overlap_clamps_to_divisors():
 
 
 def test_pencil_local_engine_consumes_tuner_cache(mesh8, tmp_path, monkeypatch):
-    # Round-2 verdict item 4: distributed paths must inherit single-chip
-    # tuning wins.  Put a cpu-platform entry in a temp cache and check (a)
-    # _local_fused_tuning adopts its radices and knobs, and (b) the pencil
-    # path still matches the oracle while consuming it.
-    from tensorfft_tpu.parallel.pencil import _local_fused_tuning
+    # Distributed paths inherit single-device plan choices: put a
+    # cpu-platform entry in a temp plan cache and check (a) the per-shard
+    # plan adopts its radices and strategy, and (b) the pencil path still
+    # matches the oracle while consuming it.
+    from tensorfft_tpu.parallel.pencil import _local_plan
+    from tensorfft_tpu.plan import Strategy
     from tensorfft_tpu.tuning import TunerCache
 
     cache_path = tmp_path / "cache.json"
     monkeypatch.setenv("TENSORFFT_TUNER_CACHE", str(cache_path))
     c = TunerCache(cache_path)
-    c.put(64, "float32", "cpu",
-          {"radices": [4, 16], "strategy": "fused", "grouped": True})
+    c.put(64, "float32", "cpu", {"radices": [4, 16], "strategy": "staged"})
     c.save()
 
-    radices, knobs = _local_fused_tuning(64, "float32")
-    assert radices == (4, 16)          # not balanced_radices(64) == (64,)
-    assert knobs == {"grouped": True}
+    plan = _local_plan(64, "float32", "forward")
+    assert plan.radices == (4, 16)     # not optimal_radices(64) == (64,)
+    assert plan.resolve_strategy() is Strategy.STAGED
 
     n, n1 = 1 << 12, 64                # column pass length n1=64 is cached
     rng = np.random.default_rng(5)

@@ -1,17 +1,17 @@
+import dataclasses
 import math
 
 import pytest
 
 from tensorfft_tpu.plan import (
     FFTPlan,
-    Precision,
     Strategy,
     balanced_radices,
     create_plan,
-    default_four_step_split,
     exact_log2,
     is_power_of_2,
     plan_works_on_device,
+    route,
 )
 
 
@@ -35,7 +35,7 @@ def test_balanced_radices_cover_all_powers(p):
     radices = balanced_radices(n)
     assert math.prod(radices) == n
     assert all(2 <= r <= 256 for r in radices)
-    # Stage count is minimal for radix<=128 flat MXU cost.
+    # Stage count is minimal for radices <= 128.
     assert len(radices) == max(1, math.ceil(p / 7))
 
 
@@ -44,22 +44,6 @@ def test_create_plan_rejects_non_power_of_two():
         create_plan(1000)
     with pytest.raises(ValueError):
         create_plan(0)
-
-
-def test_create_plan_small_is_fused():
-    plan = create_plan(4096)
-    assert plan.resolve_strategy() == Strategy.FUSED
-    assert plan.four_step_split is None
-
-
-def test_create_plan_large_is_four_step():
-    plan = create_plan(1 << 20)
-    assert plan.resolve_strategy() == Strategy.FOUR_STEP
-    n1, n2 = plan.four_step_split
-    assert n1 * n2 == 1 << 20
-    assert max(n1, n2) <= plan.max_fused_length
-    assert math.prod(plan.col_radices) == n1
-    assert math.prod(plan.row_radices) == n2
 
 
 def test_plan_is_hashable_static_arg():
@@ -76,134 +60,9 @@ def test_stage_scale_progressive():
     assert abs(math.prod(plan.stage_scale) - 1 / 4096) < 1e-12
 
 
-def test_four_step_split_balanced():
-    n1, n2 = default_four_step_split(1 << 20, 4096)
-    assert n1 * n2 == 1 << 20
-    assert n1 <= n2 <= 4096
-
-
 def test_plan_works_on_device_cpu():
     ok, reason = plan_works_on_device(create_plan(4096))
     assert ok, reason
-
-
-def test_plan_works_on_device_k2_budget():
-    # Wide K2 panels scale the row pass's VMEM block linearly: k1_tile=256 at
-    # n2=32768 must be rejected before it can stall Mosaic, while the default
-    # 128 tile of the same split stays in budget (CPU spec: 126 MiB).
-    wide = create_plan(
-        1 << 27,
-        tuning={"strategy": "four_step", "four_step_split": (4096, 32768),
-                "k1_tile": 256},
-    )
-    ok, reason = plan_works_on_device(wide)
-    assert not ok and "K2 block" in reason, reason
-    narrow = create_plan(
-        1 << 27,
-        tuning={"strategy": "four_step", "four_step_split": (4096, 32768)},
-    )
-    ok, reason = plan_works_on_device(narrow)
-    assert ok, reason
-    with pytest.raises(ValueError):
-        create_plan(4096, tuning={"k1_tile": 96})
-
-
-class _FakeV5e:
-    """Duck-typed TPU device: plan_works_on_device only reads these attrs."""
-
-    platform = "tpu"
-    device_kind = "TPU v5 lite"
-
-
-def test_plan_works_on_device_budgets_fold_tables():
-    # Round-4 verdict weak #2: the grouped (64,256) stage-2 fold table is
-    # 33.5 MiB in bf16 but 67 MiB under the float32 policy (fp32 tables) —
-    # the config that killed the Mosaic allocator on device.  The guard must
-    # reject it BEFORE compilation; the bf16-policy twin (the committed
-    # headline winner) must keep passing.
-    dev = _FakeV5e()
-    f32 = create_plan(16384, precision="float32",
-                      tuning={"strategy": "fused", "radices": (64, 256),
-                              "grouped": True})
-    ok, reason = plan_works_on_device(f32, device=dev)
-    assert not ok and "stage tables" in reason, reason
-    bf16 = create_plan(16384, precision="bfloat16",
-                       tuning={"strategy": "fused", "radices": (64, 256),
-                               "grouped": True})
-    ok, reason = plan_works_on_device(bf16, device=dev)
-    assert ok, reason
-    # Ungrouped f32 tables are tiny: the float32 policy stays deployable
-    # with the fold disabled.
-    f32_ungrouped = create_plan(16384, precision="float32",
-                                tuning={"strategy": "fused",
-                                        "radices": (64, 256)})
-    ok, reason = plan_works_on_device(f32_ungrouped, device=dev)
-    assert ok, reason
-
-
-def test_stage_table_bytes_matches_materialized_tables():
-    # The budget helper must track the real table builders entry-for-entry.
-    import numpy as np
-
-    from tensorfft_tpu.ops.fused_pallas import (
-        planar_stage_tables,
-        stage_table_arrays,
-        stage_table_bytes,
-    )
-
-    cases = [
-        ((64, 256), True, "bf16", "stacked", "block"),
-        ((64, 256), True, "bf16x3", "stacked", "block"),
-        ((64, 256), False, "bf16", "stacked", "block"),
-        ((32, 128), True, "bf16", "stacked", "mult3"),
-        ((16, 16, 16), True, "bf16", "stacked", "block"),
-        ((64, 64), False, "bf16", "planar", "block"),
-        ((64, 64), False, "bf16", "planar_vpu", "block"),
-    ]
-    for radices, grouped, algorithm, engine, cm in cases:
-        scales = tuple(1.0 / r for r in radices)
-        if engine.startswith("planar"):
-            arrays = planar_stage_tables(radices, scales, -1, algorithm,
-                                         fold=(engine == "planar"))
-        else:
-            arrays = stage_table_arrays(radices, scales, -1, algorithm,
-                                        grouped, complex_mult=cm)
-        real = sum(int(np.prod(a.shape)) * a.dtype.itemsize for a in arrays)
-        est = stage_table_bytes(radices, grouped, algorithm, engine=engine,
-                                complex_mult=cm)
-        assert est == real, (radices, grouped, algorithm, engine, cm,
-                             est, real)
-
-
-def test_committed_cache_plans_deployable():
-    # Every winner in the committed production cache must pass the plan
-    # guard (including the new fold-table budget): the cache serving a
-    # config the guard rejects is the round-4 failure mode.
-    import json
-    from pathlib import Path
-
-    from tensorfft_tpu.tuning.cache import default_cache_path
-
-    path = default_cache_path()
-    if not path.exists():
-        pytest.skip("no committed tuner cache")
-    entries = json.loads(Path(path).read_text())["entries"]
-    assert entries
-    from tensorfft_tpu.tuning import TunerCache
-
-    cache = TunerCache()
-    for key in entries:
-        parts = dict(p.split("=", 1) for p in key.split(","))
-        tuning = cache.get(int(parts["n"]), parts["precision"],
-                           parts["platform"],
-                           batch=int(parts["batch"]) if "batch" in parts
-                           else None)
-        assert tuning is not None, key
-        plan = create_plan(int(parts["n"]), precision=parts["precision"],
-                           tuning=tuning)
-        # Check against the REAL target's budget (v5e), not the CPU spec.
-        ok, reason = plan_works_on_device(plan, device=_FakeV5e())
-        assert ok, f"{key}: {reason}"
 
 
 def test_plan_validation():
@@ -216,47 +75,90 @@ def test_plan_validation():
 def test_tuning_overrides():
     plan = create_plan(
         1 << 16,
-        tuning={"radices": (16, 16, 16, 16), "lane_tile": 256,
-                "strategy": "staged"},
+        tuning={"radices": (16, 16, 16, 16), "strategy": "xla"},
     )
     assert plan.radices == (16, 16, 16, 16)
-    assert plan.lane_tile == 256
-    assert plan.resolve_strategy() == Strategy.STAGED
+    assert plan.resolve_strategy() == Strategy.XLA
 
 
-@pytest.mark.parametrize("p", range(15, 29))
-def test_four_step_split_in_contract_range(p):
-    # Round-1 regression (ADVICE.md): p=27,28 tripped an AssertionError
-    # because the n2 cap pushed n1 past max_fused.  Every in-contract length
-    # (p <= 2*pf) must split with both factors fusable.
-    n = 1 << p
-    n1, n2 = default_four_step_split(n, 16384)
-    assert n1 * n2 == n
-    assert n1 <= 16384 and n2 <= 16384
-    # And create_plan must build a valid plan for each.
-    plan = create_plan(n)
-    assert math.prod(plan.col_radices) * math.prod(plan.row_radices) == n
+# -- route: the one choice of execution strategy -------------------------------
+
+@pytest.mark.parametrize("p", [1, 8, 12, 14, 15, 20, 24, 28])
+def test_route_cpu_is_staged(p):
+    # The CPU reproduces the stage numerics of the bf16/bf16x3 policies.
+    assert route(1 << p, "cpu") is Strategy.STAGED
 
 
-def test_four_step_split_too_large_raises():
-    with pytest.raises(ValueError):
-        default_four_step_split(1 << 29, 16384)
+@pytest.mark.parametrize("p", [1, 8, 12, 14, 15, 20, 24, 28])
+def test_route_gpu_is_cufft(p):
+    # cuFFT beat the staged loop in every measured H100 cell (plan.route).
+    assert route(1 << p, "gpu") is Strategy.XLA
 
 
-def test_four_step_plan_requires_full_decomposition():
-    # Directly-constructed four-step plans must carry split + radices
-    # (ADVICE.md: used to crash later in _fft_split_core unpacking None).
-    with pytest.raises(ValueError):
-        FFTPlan(fft_length=1 << 16, radices=(256, 256),
-                strategy=Strategy.FOUR_STEP)
-    with pytest.raises(ValueError):
-        FFTPlan(fft_length=1 << 16, radices=(256, 256),
-                strategy=Strategy.FOUR_STEP, four_step_split=(256, 256))
-    with pytest.raises(ValueError):
-        FFTPlan(fft_length=1 << 16, radices=(256, 256),
-                strategy=Strategy.FOUR_STEP, four_step_split=(256, 256),
-                col_radices=(16, 16), row_radices=(16, 8))  # row product wrong
-    ok = FFTPlan(fft_length=1 << 16, radices=(256, 256),
-                 strategy=Strategy.FOUR_STEP, four_step_split=(256, 256),
-                 col_radices=(16, 16), row_radices=(16, 16))
-    assert ok.resolve_strategy() is Strategy.FOUR_STEP
+def test_route_default_platform_is_jax_backend():
+    import jax
+
+    assert route(4096) is route(4096, jax.default_backend())
+
+
+@pytest.mark.parametrize("platform", ["rocm", "METAL", "neuron"])
+def test_route_unknown_platform_raises(platform):
+    with pytest.raises(ValueError, match="no FFT route"):
+        route(4096, platform)
+
+
+def test_auto_resolves_through_route():
+    # Under the test suite's CPU platform, AUTO is the staged loop.
+    plan = create_plan(4096)
+    assert plan.strategy is Strategy.AUTO
+    assert plan.resolve_strategy() is route(4096) is Strategy.STAGED
+    assert create_plan(4096, strategy="xla").resolve_strategy() is Strategy.XLA
+
+
+@pytest.mark.parametrize("removed", ["fused", "four_step"])
+def test_removed_strategies_raise(removed):
+    with pytest.raises(ValueError, match="'auto', 'staged', 'xla'"):
+        create_plan(4096, strategy=removed)
+    with pytest.raises(ValueError, match="'auto', 'staged', 'xla'"):
+        FFTPlan(fft_length=256, radices=(16, 16), strategy=removed)
+    with pytest.raises(ValueError, match="'auto', 'staged', 'xla'"):
+        create_plan(4096, tuning={"strategy": removed})
+
+
+@pytest.mark.parametrize("knob", [
+    "lane_tile", "grouped", "state_dtype", "kloop_width", "complex_mult",
+    "engine", "first_dot", "k1_tile", "interleave_downcast", "fused_layout",
+    "max_fused_length", "four_step_split", "col_radices", "row_radices",
+])
+def test_removed_plan_knobs_are_refused(knob):
+    # Neither a plan field nor a tuning key any more.
+    assert knob not in {f.name for f in dataclasses.fields(FFTPlan)}
+    with pytest.raises(ValueError, match="unknown tuning keys"):
+        create_plan(4096, tuning={knob: 1})
+
+
+class _FakeGPU:
+    """Duck-typed CUDA device: plan_works_on_device reads these attrs."""
+
+    platform = "gpu"
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+    def __init__(self, compute_capability):
+        self.compute_capability = compute_capability
+
+
+@pytest.mark.parametrize("cc,ok", [("9.0", True), ("8.0", True),
+                                   ("7.5", False), (None, False)])
+def test_plan_works_on_device_gpu_compute_capability(cc, ok):
+    # Reference parity: tensor-core FFTs need compute capability >= 8.0
+    # (Plan.h:262-265).
+    got, reason = plan_works_on_device(create_plan(4096), _FakeGPU(cc))
+    assert got is ok, reason
+
+
+def test_plan_works_on_device_unknown_platform():
+    class _Other:
+        platform = "rocm"
+
+    ok, reason = plan_works_on_device(create_plan(4096), _Other())
+    assert not ok and "no FFT route" in reason

@@ -111,9 +111,10 @@ def test_xla_strategy_baseline():
 
 
 def test_bfloat16_policy_passes_gate():
-    # The half-precision (reference-parity) policy: bf16 storage and bf16 MXU
-    # operands.  Input quantization + per-stage operand rounding must clear the
-    # reference fp16-era gate (measured margin ~3x at N=256, improving with N).
+    # The half-precision (reference-parity) policy: bf16 storage and bf16
+    # stage operands.  Input quantization + per-stage operand rounding must
+    # clear the reference fp16-era gate (margin ~3x at N=256, improving
+    # with N).
     for n in (256, 4096, 65536):
         d = run_case(n, "bfloat16", seeds=(0, 1, 2))
         assert d.passes_reference_gate(), f"N={n}: {d}"
